@@ -14,7 +14,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   4. the slice: HeicDecoder.decode(data, device="cuda") cold and warm;
      both kernels must have been launched by it, tiles 1, 22, 24, 38 and
      46 must equal the numpy reference (heif_tpu.ops.ref_recon) bit for
-     bit; stage times and MP/s.
+     bit; stage times and MP/s;
+  5. the host envelope trace of all 48 flagship tiles (768 WPP
+     substreams: full trace segments, envelope tapes, residual spans);
+  6. the three CABAC kernels against the host golden on all 768 full
+     streams, through their image entry points (replay_image,
+     replay_windowed_image, gen_image): bins, scattered coefficients and
+     final contexts bit for bit; kernel ms (CUDA events) and Mbins/s;
+  7. each CABAC kernel against its plain PyTorch version on the card, on
+     the 768 streams cut to 2048 bins (replays) or 2048 steps (generator):
+     whole bin / event / debug / state planes; both times;
+  8. the raw-HEVC slice: flagship tiles 1, 22 and 24 as Annex-B streams
+     through HeicDecoder.decode_hevc(entropy="device-gen", device="cuda")
+     must equal ref_recon and launch the generator and both intra
+     kernels; then `python -m heif_tpu_torch decode tile.hevc --entropy
+     device-gen -o out.npz` once as a subprocess, held equal too.
 The last two lines are a JSON summary of the kernels and the card's
 nvidia-smi line before a final {"ok": true, "device": {...}} line.
 Without a CUDA device it exits 2 before doing anything. Any import of
@@ -29,9 +43,13 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ASSET = os.path.join(ROOT, "tests", "assets", "halfmoonbay.heic")
 ORACLE_TILES = (1, 22, 24, 38, 46)
+HEVC_TILES = (1, 22, 24)
+PREFIX = 2048  # bins (replays) / steps (generator) of the plain comparison
 KERNEL_SOURCE = "heif_tpu_torch/csrc/intra.cu"
 
 
@@ -146,8 +164,6 @@ def check_kernels(label: str, bp, dev) -> dict:
 
 def oracle_check(out: dict, sps, pps, tile_ids, slices, sts):
     """Tiles ORACLE_TILES of the decoded image vs ref_recon, bit for bit."""
-    import numpy as np
-
     from heif_tpu.ops.ref_recon import reconstruct_tile
 
     info = out["info"]
@@ -170,6 +186,220 @@ def oracle_check(out: dict, sps, pps, tile_ids, slices, sts):
     print(f"[oracle] tiles {list(ORACLE_TILES)} equal ref_recon bit for bit")
 
 
+def trace_flagship(sps, pps, slices):
+    """Phase 5: envelope trace of every tile. Returns replay entries
+    (rbsp, segment), generator entries (rbsp, segment, tape, n_steps,
+    spans), the tile of each stream and each tile's golden coefficient
+    planes."""
+    from heif_tpu.cabac.envelope import build_envelope_tape, envelope_trace
+
+    rentries, gentries, tile_of, goldens = [], [], [], []
+    for ti, ps in enumerate(slices):
+        tr = envelope_trace(sps, pps, ps)
+        rbsp = bytes(ps.rbsp)
+        goldens.append(tr.syntax.coeffs)
+        for si, seg in enumerate(tr.segments):
+            tape, n_steps = build_envelope_tape(tr, si)
+            spans = sorted((sp for sp in tr.spans if sp.seg == si),
+                           key=lambda sp: sp.b0)
+            rentries.append((rbsp, seg))
+            gentries.append((rbsp, seg, tape, n_steps, spans))
+            tile_of.append(ti)
+    return rentries, gentries, tile_of, goldens
+
+
+def _same_ctx(res, segs, what):
+    for i, ((_, p_fin, mps_fin), seg) in enumerate(zip(res, segs)):
+        if not (np.array_equal(p_fin, seg.p_final)
+                and np.array_equal(mps_fin, seg.mps_final)):
+            raise SystemExit(f"{what}: stream {i} final contexts differ "
+                             "from the host decoder's")
+
+
+def check_golden(rentries, gentries, tile_of, goldens, dev, card) -> dict:
+    """Phase 6: the three kernels over every full stream, through their
+    image entry points, against the host golden. Returns launches (the
+    replays' own runs) and kernel times."""
+    from heif_tpu_torch.ops import cabac as C
+    from heif_tpu_torch.ops import cabac_gen as G
+
+    segs = [s for _, s in rentries]
+    total_bins = sum(s.n_bins for s in segs)
+    out = {}
+
+    C.reset_launches()
+    res = C.replay_image(rentries, device=dev)
+    out["replay_launches"] = C.LAUNCHES["replay"]
+    for i, (bins, _, _) in enumerate(res):
+        if not np.array_equal(bins, segs[i].bins):
+            raise SystemExit(f"replay: stream {i} bins differ from the trace")
+    _same_ctx(res, segs, "replay")
+    out["replay_full_ms"] = C.bench_device_entropy(rentries, device=dev)[2] * 1e3
+
+    C.reset_launches()
+    res = C.replay_windowed_image(rentries, device=dev)
+    out["windowed_launches"] = C.LAUNCHES["windowed"]
+    for i, (bins, _, _) in enumerate(res):
+        if not np.array_equal(bins, segs[i].bins):
+            raise SystemExit(f"windowed: stream {i} bins differ from the trace")
+    _same_ctx(res, segs, "windowed")
+    wargs, _ = C.windowed_image_inputs(rentries, device=dev)
+    out["windowed_full_ms"] = cuda_ms(lambda: C.replay_windowed(*wargs), 3)
+
+    res = G.gen_image(gentries, device=dev)
+    _same_ctx(res, segs, "gen")
+    planes = [[np.zeros_like(p) for p in g] for g in goldens]
+    for ei, (ev, _, _) in enumerate(res):
+        G.scatter_events(ev, gentries[ei][4], planes[tile_of[ei]])
+    for ti, g in enumerate(goldens):
+        for c in range(3):
+            bad = int(np.count_nonzero(planes[ti][c] != g[c]))
+            if bad:
+                raise SystemExit(f"gen: tile {ti} plane {c}: {bad} "
+                                 "coefficients differ from the host decoder")
+    out["gen_full_ms"] = G.bench_gen_image(gentries, device=dev)[2] * 1e3
+
+    n = len(rentries)
+    for name in ("replay", "windowed", "gen"):
+        ms = out[f"{name}_full_ms"]
+        print(f"[golden] {name}: {n} full streams bit-exact vs the host "
+              f"decoder; kernel {ms:.3f} ms, {total_bins / ms / 1e3:.1f} "
+              f"Mbins/s ({total_bins} bins) on {card}")
+    return out
+
+
+def _prefix(seg, k: int):
+    from heif_tpu.cabac.trace import TraceSegment
+
+    t = TraceSegment(byte_start=seg.byte_start, byte_end=seg.byte_end)
+    t.p0, t.mps0 = seg.p0, seg.mps0
+    t.kinds, t.slots, t.bins = seg.kinds[:k], seg.slots[:k], seg.bins[:k]
+    t.positions = seg.positions[:k]
+    return t
+
+
+def _kernel_vs_plain(name, kern, plain, card) -> dict:
+    """Run a kernel and its plain version on the same device inputs;
+    require equal planes. Times: kernel by CUDA events over 5 runs, plain
+    its one comparison run."""
+    import torch
+
+    got = kern()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain()
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = 0
+    for a, b in zip(got, want):
+        if (a is None) != (b is None):
+            raise SystemExit(f"{name}: kernel and plain outputs differ in kind")
+        if a is not None:
+            if a.shape != b.shape:
+                raise SystemExit(f"{name}: shapes {a.shape} != {b.shape}")
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    ms = cuda_ms(kern, 5)
+    print(f"[plain] {name}: max_abs_err={err} kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms on {card}")
+    if err:
+        raise SystemExit(f"{name} kernel disagrees with its plain version")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_plain(rentries, gentries, dev, card) -> dict:
+    """Phase 7: each CABAC kernel vs its plain version on the 768 streams
+    cut to PREFIX bins / steps."""
+    from heif_tpu_torch.ops import cabac as C
+    from heif_tpu_torch.ops import cabac_gen as G
+
+    cut = [(rb, _prefix(s, PREFIX)) for rb, s in rentries]
+    arrays = C.stack_batches(C.pack_sorted_batches(cut, blk=PREFIX),
+                             ("words", "c0", "kinds", "slots"),
+                             (0, 0, C.KIND_PAD, 0))
+    args = [C.as_tensor(a, dev) for a in arrays]
+    out = {"replay": _kernel_vs_plain(
+        f"replay {args[2].shape[0]}x{args[2].shape[1]} steps x 128 lanes",
+        lambda: C.replay(*args), lambda: C.replay_plain(*args), card)}
+    wargs, _ = C.windowed_image_inputs(cut, device=dev)
+    out["windowed"] = _kernel_vs_plain(
+        f"windowed {wargs[3].shape[0]}x{wargs[3].shape[1]} steps x 128 lanes",
+        lambda: C.replay_windowed(*wargs),
+        lambda: C.replay_windowed_plain(*wargs), card)
+    capped = [(rb, s, t, min(ns, PREFIX), sp) for rb, s, t, ns, sp in gentries]
+    gargs, S, _ = G.image_inputs(capped, device=dev)
+    out["gen"] = _kernel_vs_plain(
+        f"gen {gargs[0].shape[0]}x{S} steps x 128 lanes (events, dbg, state)",
+        lambda: G.gen(*gargs, S, debug=True),
+        lambda: G.gen_plain(*gargs, S, debug=True), card)
+    return out
+
+
+def check_hevc_slice(data, sps, pps, tile_ids, slices, sts, dev, card) -> dict:
+    """Phase 8: flagship tiles as Annex-B streams through decode_hevc with
+    device-gen entropy on the card, and once through the CLI."""
+    import tempfile
+
+    import torch
+
+    from heif_tpu.ops.ref_recon import reconstruct_tile
+    from heif_tpu_torch import HeicDecoder
+    from heif_tpu_torch.ops import cabac_gen as G
+    from heif_tpu_torch.ops import intra as I
+    from heif_tpu_torch.utils.annexb import tile_annexb
+
+    streams, golds = {}, {}
+    for tid in HEVC_TILES:
+        i = tile_ids.index(tid)
+        streams[tid] = tile_annexb(data, i)
+        golds[tid] = reconstruct_tile(sts[i], sps, pps, slices[i].header)
+
+    G.reset_launches()
+    I.reset_launches()
+    t0 = time.perf_counter()
+    outs = {tid: HeicDecoder.decode_hevc(s, entropy="device-gen", device=dev)
+            for tid, s in streams.items()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gen": G.LAUNCHES["gen"], **I.LAUNCHES}
+    print(f"[hevc] kernel launches in {len(streams)} decode_hevc calls: "
+          f"{launches}; {wall * 1e3:.1f} ms on {card}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise SystemExit(f"decode_hevc never launched the {name} kernel")
+    for tid, got in outs.items():
+        for c, k in enumerate(("Y", "Cb", "Cr")):
+            if not np.array_equal(got[k], golds[tid][c]):
+                raise SystemExit(f"decode_hevc tile {tid} {k} differs from "
+                                 "ref_recon")
+    print(f"[hevc] tiles {list(HEVC_TILES)}: decode_hevc(entropy="
+          "'device-gen', device='cuda') equals ref_recon bit for bit")
+
+    tid = HEVC_TILES[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "tile.hevc")
+        dst = os.path.join(tmp, "out.npz")
+        with open(src, "wb") as f:
+            f.write(streams[tid])
+        proc = subprocess.run(
+            [sys.executable, "-m", "heif_tpu_torch", "decode", src,
+             "--entropy", "device-gen", "--device", dev.type, "-o", dst],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"CLI decode failed ({proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+        got = np.load(dst)
+        for c, k in enumerate(("Y", "Cb", "Cr")):
+            if not np.array_equal(got[k], golds[tid][c]):
+                raise SystemExit(f"CLI decode of tile {tid}: {k} differs "
+                                 "from ref_recon")
+    print(f"[hevc] python -m heif_tpu_torch decode tile{tid}.hevc --entropy "
+          "device-gen: equals ref_recon")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -180,7 +410,6 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     # the port runs without JAX: make any import of it fail
     sys.modules["jax"] = None
-    import numpy as np
 
     from heif_tpu import native
     from heif_tpu.utils.profiling import DecodeStats
@@ -258,6 +487,29 @@ def main() -> int:
         print(f"[slice] {label}: {wall * 1e3:.1f} ms, {mp / wall:.2f} MP/s "
               f"({mp:.2f} MP) on {card}; {stages}")
 
+    # phase 5
+    t0 = time.perf_counter()
+    rentries, gentries, tile_of, goldens = trace_flagship(sps, pps, slices)
+    n_bins = sum(s.n_bins for _, s in rentries)
+    print(f"[trace] {len(slices)} tiles -> {len(rentries)} substreams, "
+          f"{n_bins} bins, at most {max(e[3] for e in gentries)} generator "
+          f"steps a stream; host envelope trace {time.perf_counter() - t0:.1f} s")
+
+    # phase 6
+    t0 = time.perf_counter()
+    golden = check_golden(rentries, gentries, tile_of, goldens, dev, card)
+    print(f"[golden] phase took {time.perf_counter() - t0:.1f} s")
+
+    # phase 7
+    t0 = time.perf_counter()
+    plain = check_plain(rentries, gentries, dev, card)
+    print(f"[plain] phase took {time.perf_counter() - t0:.1f} s")
+
+    # phase 8: the raw-HEVC path with device entropy
+    t0 = time.perf_counter()
+    hevc = check_hevc_slice(data, sps, pps, tile_ids, slices, sts, dev, card)
+    print(f"[hevc] phase took {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name, replaces in (("luma", "heif_tpu/ops/pallas_intra.py:420"),
                            ("chroma", "heif_tpu/ops/pallas_intra.py:647")):
@@ -271,6 +523,23 @@ def main() -> int:
                                synth[name]["max_abs_err"]),
             "ms": flag[name]["ms"],
             "plain_ms": flag[name]["plain_ms"],
+        })
+    for name, source, replaces, count in (
+        ("cabac_replay", "heif_tpu_torch/csrc/cabac.cu",
+         "heif_tpu/ops/pallas_cabac.py:82", golden["replay_launches"]),
+        ("cabac_windowed", "heif_tpu_torch/csrc/cabac.cu",
+         "heif_tpu/ops/pallas_cabac.py:377", golden["windowed_launches"]),
+        ("cabac_gen", "heif_tpu_torch/csrc/cabac_gen.cu",
+         "heif_tpu/ops/pallas_cabac_gen.py:171", hevc["gen"]),
+    ):
+        if count <= 0:
+            raise SystemExit(f"{name}: its entry point never launched it")
+        key = name.split("_")[1]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": count,
+            "max_abs_err": plain[key]["max_abs_err"],
+            "ms": plain[key]["ms"], "plain_ms": plain[key]["plain_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

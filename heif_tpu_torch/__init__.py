@@ -7,16 +7,27 @@ library, the numpy reference reconstruction) are imported from
 `heif_tpu` unchanged; this package holds everything that ran on JAX.
 
 Layering (host -> device), mirroring heif_tpu:
+  cli.py            python -m heif_tpu_torch: probe / decode / verify /
+                    bench; raw Annex-B input goes to decode_hevc
+  models/decoder.py HeicDecoder.decode / decode_hevc / probe
   device.py         explicit device selection (no silent CPU fallback)
   tables.py         spec constant tables as nn.Module buffers
+                    (ReconTables, CabacTables)
   ops/batch.py      host packer (numpy) + the batched device core
   ops/recon.py      residual, reference sources, plain intra walk,
                     deblocking, SAO (plain PyTorch)
   ops/intra.py      the intra-walk wrappers: CUDA kernel on a CUDA
                     tensor, plain walk on a CPU tensor
+  ops/cabac.py      CABAC tape replay (whole-stream and windowed): host
+                    packers, plain engines, kernel wrappers
+  ops/cabac_gen.py  the residual request generator (device-gen entropy):
+                    host packers, event scatter, plain generator, wrapper
   csrc/intra.cu     the hand-written CUDA intra kernels (sm_90a)
+  csrc/cabac.cu     the CUDA replay kernels; csrc/cabac_gen.cu the CUDA
+                    generator; csrc/cabac_engine.cuh their shared
+                    arithmetic decoder
   ops/_build.py     nvcc build + ctypes binding of csrc/
-  models/decoder.py HeicDecoder.decode / probe
+  utils/annexb.py   Annex-B streams from HEIF tiles
 
 Nothing here imports jax.
 """

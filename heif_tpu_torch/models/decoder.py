@@ -1,10 +1,11 @@
 """HeicDecoder — container -> host entropy -> batched reconstruction on
 one PyTorch device.
 
-Port of heif_tpu/models/decoder.py (HeicDecoder.decode). The container,
-header and entropy layers and the output assembly (probe, _stitch,
-_select_vcl_nal) are heif_tpu's own, imported unchanged; reconstruction
-runs in heif_tpu_torch.ops.batch, all tiles in one batch.
+Port of heif_tpu/models/decoder.py (HeicDecoder.decode, decode_hevc and
+_entropy_device_gen). The container, header and entropy layers and the
+output assembly (probe, _stitch, _select_vcl_nal, to_rgb) are heif_tpu's
+own, imported unchanged; reconstruction runs in heif_tpu_torch.ops.batch,
+all tiles in one batch; device-side entropy runs in ops.cabac_gen.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ class HeicDecoder:
 
     probe = staticmethod(_Ref.probe)
     _stitch = staticmethod(_Ref._stitch)
+    to_rgb = staticmethod(_Ref.to_rgb)
 
     @staticmethod
     def decode(
@@ -224,3 +226,116 @@ class HeicDecoder:
             )
             stats.megapixels = grid.output_width * grid.output_height / 1e6
         return planes
+
+    @staticmethod
+    def _entropy_device_gen(sps, pps, ps, device):
+        """Entropy through the residual request generator on `device`.
+
+        The host envelope trace supplies the non-residual syntax and one
+        marker per TU; the generator (ops.cabac_gen: the CUDA kernel on a
+        CUDA device, the plain version on the CPU) decodes every
+        residual-coding bin from the raw substream bytes and emits the
+        coefficients as events, which replace the host's coefficient
+        planes. Raises ValueError if a substream's final context state
+        differs from the host decoder's.
+        """
+        from heif_tpu.cabac.envelope import build_envelope_tape, envelope_trace
+        from heif_tpu_torch.ops import cabac_gen as G
+
+        if pps.tiles_enabled_flag:
+            raise NotImplementedError(
+                "device-gen entropy does not take tile-segmented "
+                "substreams yet"
+            )
+        tr = envelope_trace(sps, pps, ps)
+        rbsp = ps.rbsp if isinstance(ps.rbsp, bytes) else bytes(ps.rbsp)
+        entries = []
+        for si, seg in enumerate(tr.segments):
+            tape, n_steps = build_envelope_tape(tr, si)
+            spans = sorted(
+                (sp for sp in tr.spans if sp.seg == si), key=lambda sp: sp.b0
+            )
+            entries.append((rbsp, seg, tape, n_steps, spans))
+        results = G.gen_image(entries, device=device)
+        st = tr.syntax
+        # the device's coefficients replace the host's
+        st.coeffs = [np.zeros_like(p) for p in st.coeffs]
+        for ei, (events_col, p_fin, mps_fin) in enumerate(results):
+            _, seg, _, _, spans = entries[ei]
+            G.scatter_events(events_col, spans, st.coeffs)
+            if not (np.array_equal(p_fin, seg.p_final)
+                    and np.array_equal(mps_fin, seg.mps_final)):
+                raise ValueError(f"device-gen entropy desync in substream {ei}")
+        return st
+
+    @staticmethod
+    def decode_hevc(stream: bytes, backend: str = "torch",
+                    entropy: str = "auto", device="cuda") -> dict:
+        """Decode a raw single-picture HEVC Annex-B intra stream.
+
+        Returns {"Y", "Cb", "Cr", "sps", "pps"}: uint8 numpy planes
+        (uint16 above 8 bits; Cb/Cr None for monochrome), as heif_tpu's
+        decode_hevc.
+
+        backend: "torch" (the default: the port's batched reconstruction,
+          ops.batch.reconstruct_tiles, on `device`) or "ref" (heif_tpu's
+          host numpy reference, ops.ref_recon).
+        entropy: "auto" (native C++ when available, the Python twin
+          otherwise) or "device-gen" (the residual request generator on
+          `device`, see _entropy_device_gen).
+        device: "cuda" (default; raises without a usable CUDA device) or
+          "cpu" (the plain PyTorch path). Nothing falls back silently.
+        Tiles with loop_filter_across_tiles_enabled_flag=0 and SAO
+        (tile-clamped SAO) raise NotImplementedError at once.
+        """
+        from heif_tpu import native
+        from heif_tpu.cabac.syntax import TileSyntaxDecoder
+        from heif_tpu.hevc import params
+        from heif_tpu.hevc import slice as sl
+        from heif_tpu.hevc.rbsp import remove_emulation_prevention
+        from heif_tpu_torch.device import resolve_device
+
+        if backend not in ("torch", "ref"):
+            raise ValueError(f"unknown backend {backend!r} (torch or ref)")
+        if entropy not in ("auto", "device-gen"):
+            raise ValueError(f"unknown entropy {entropy!r} (auto or device-gen)")
+        device = resolve_device(device)
+        sps = pps = slice_nal = None
+        for nal in sl.split_annexb_nals(stream):
+            kind = (nal[0] >> 1) & 0x3F
+            if kind == 33:
+                sps = params.parse_sps(remove_emulation_prevention(nal[2:]))
+            elif kind == 34:
+                pps = params.parse_pps(remove_emulation_prevention(nal[2:]))
+            elif kind <= 31 and slice_nal is None:  # first VCL NAL
+                slice_nal = nal
+        if sps is None or pps is None or slice_nal is None:
+            raise ValueError("stream lacks SPS/PPS/slice NAL")
+        ps = sl.parse_slice_header(slice_nal, sps, pps)
+        if (pps.tiles_enabled_flag
+                and not pps.loop_filter_across_tiles_enabled_flag
+                and (ps.header.slice_sao_luma_flag
+                     or ps.header.slice_sao_chroma_flag)):
+            raise NotImplementedError(
+                "tiles with loop_filter_across_tiles_enabled_flag=0 and "
+                "SAO (tile-clamped SAO) are not supported"
+            )
+
+        if entropy == "device-gen":
+            st = HeicDecoder._entropy_device_gen(sps, pps, ps, device)
+        elif native.available():
+            st = native.decode_tile_native(sps, pps, ps)
+        else:
+            st = TileSyntaxDecoder(sps, pps, ps).decode()
+
+        if backend == "ref":
+            from heif_tpu.ops.ref_recon import reconstruct_tile
+
+            y, cb, cr = reconstruct_tile(st, sps, pps, ps.header)
+        else:
+            from heif_tpu_torch.ops.batch import reconstruct_tiles
+
+            y, cb, cr = reconstruct_tiles([st], sps, pps, [ps], device=device)[0]
+        if sps.chroma_format_idc == 0:
+            cb = cr = None  # monochrome: no chroma planes
+        return {"Y": y, "Cb": cb, "Cr": cr, "sps": sps, "pps": pps}

@@ -1,16 +1,20 @@
 """Build and bind the CUDA sources in heif_tpu_torch/csrc/.
 
-nvcc compiles every csrc/*.cu into one shared library with a plain C
-interface, for sm_90a (Hopper), at first use:
+nvcc compiles each csrc/*.cu to an object for sm_90a (Hopper), one nvcc
+process per source, all started together, then links them into one
+shared library with a plain C interface, at first use:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/heif_tpu_torch/libheif_kernels_<hash>.so
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <src>.o <src>.cu          (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/heif_tpu_torch/libheif_kernels_<hash>.so *.o
 
-The file name carries a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads the existing library. The
-library is loaded with ctypes; pointers and the CUDA stream are passed as
-void*, and each launcher returns cudaGetLastError(). A failed build
-raises with nvcc's stderr: there is no fallback.
+The file name carries a hash of the sources (headers included) and
+flags, so an edited source rebuilds and an unchanged one loads the
+existing library. The library is loaded with ctypes; pointers and the
+CUDA stream are passed as void*, and each launcher returns
+cudaGetLastError(). A failed build raises with nvcc's stderr: there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -27,10 +31,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "heif_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -44,6 +46,14 @@ _SIGNATURES = {
     # cb, cr, res_cb, res_cr, pcm_cb, pcm_cr, steps, src, counts, n, S,
     # HP, WP, HR, WR, bd, stream
     "heif_intra_chroma2": [_vp] * 9 + [_i] * 7 + [_vp],
+    # bins, state, words, c0, kinds, slots, tbl, B, W, S, stream
+    "heif_cabac_replay": [_vp] * 7 + [_i] * 3 + [_vp],
+    # bins, state, windows, biw0, c0p, kinds, slots, tbl, B, nb, w_blk,
+    # blk, stream
+    "heif_cabac_windowed": [_vp] * 8 + [_i] * 4 + [_vp],
+    # events, dbg, state, words, tape, c0, tbl, sb_fwd, sb_inv, co_fwd,
+    # co_inv, sig4, B, W, S_env, S, stream
+    "heif_cabac_gen": [_vp] * 12 + [_i] * 4 + [_vp],
 }
 
 
@@ -82,19 +92,38 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        try:
+            for src in (p for p in _sources() if p.suffix == ".cu"):
+                obj = os.path.join(tmpdir, src.stem + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+                objs.append(obj)
+            for cmd, proc in procs:
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        so = os.path.join(tmpdir, out.name)
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stderr}")
+        # atomic: a concurrent build never sees a partial file
+        os.replace(so, out)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     return out
 
 

@@ -1,0 +1,305 @@
+"""heif_tpu_torch CABAC replay engines vs heif_tpu (bit-exact, tolerance 0).
+
+- CabacTables (built from cabac.engine and hevc.scans alone) vs the JAX
+  modules' constant arrays;
+- the numpy copies of the packers vs heif_tpu.ops.pallas_cabac's, field
+  by field;
+- the plain replay (the CPU path of the kernel wrappers) vs the Pallas
+  kernels in interpret mode, on prefixes of tile 0's 16 WPP substreams of
+  the flagship image: whole bin and state planes, pad region included;
+- the plain replay over tile 0's full streams vs the host trace golden;
+- on a CUDA card only: the CUDA kernels vs the plain versions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from heif_tpu.cabac.trace import KIND_PAD, TraceSegment, trace_tile
+from heif_tpu.container.reader import HeifReader
+from heif_tpu.hevc import params
+from heif_tpu.hevc import slice as sl
+from heif_tpu.hevc.rbsp import remove_emulation_prevention
+from heif_tpu.ops import pallas_cabac as PC
+from heif_tpu.ops import pallas_cabac_gen as PG
+from heif_tpu_torch.ops import cabac as C
+from heif_tpu_torch.tables import CABAC_SHAPES, CabacTables
+
+
+@pytest.fixture(scope="module")
+def traced(halfmoonbay_bytes):
+    """rbsp and the 16 full trace segments of flagship tile 0."""
+    r = HeifReader(halfmoonbay_bytes)
+    heif = r.read()
+    rec = heif.hevc_configuration_record()
+    sps = params.parse_sps(
+        remove_emulation_prevention(rec.nal_units_of_type(33)[0][2:]))
+    pps = params.parse_pps(
+        remove_emulation_prevention(rec.nal_units_of_type(34)[0][2:]))
+    tid = heif.item_ids_referencing(heif.primary_item_id(), "dimg")[0]
+    parsed = sl.parse_slice_header(
+        sl.split_length_prefixed_nals(r.get_item_data(tid), 4)[0], sps, pps)
+    return bytes(parsed.rbsp), trace_tile(sps, pps, parsed)
+
+
+def _truncate(s: TraceSegment, k: int) -> TraceSegment:
+    t = TraceSegment(byte_start=s.byte_start, byte_end=s.byte_end)
+    t.p0, t.mps0 = s.p0, s.mps0
+    t.kinds, t.slots, t.bins = s.kinds[:k], s.slots[:k], s.bins[:k]
+    t.positions = s.positions[:k]
+    return t
+
+
+def _assert_same(a, b):
+    assert set(a) == set(b)
+    for k in a:
+        if isinstance(a[k], np.ndarray):
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        else:
+            assert a[k] == b[k], k
+
+
+# --------------------------------------------------------------------------
+# tables and the numpy copies
+# --------------------------------------------------------------------------
+
+
+def _jax_tables():
+    return {
+        "tbl": PC._TBL,
+        "tbl_win": np.asarray(PC._tbl_device_packed())[:, 0],
+        "sb_fwd": PG._SB_FWD, "sb_inv": PG._SB_INV,
+        "co_fwd": PG._CO_FWD, "co_inv": PG._CO_INV,
+        "sig4": np.asarray([PG._SIG4_LO, PG._SIG4_HI], np.int32),
+    }
+
+
+def test_cabac_tables_match_heif_tpu():
+    np.testing.assert_array_equal(PC._TBL, PG._TBL)
+    built = CabacTables.build()
+    ref = CabacTables.from_numpy(_jax_tables())
+    for name, shape in CABAC_SHAPES.items():
+        a, b = getattr(built, name), getattr(ref, name)
+        assert a.dtype == torch.int32 and tuple(a.shape) == shape
+        assert torch.equal(a, b), name
+
+
+def test_cabac_tables_refuse_bad_input():
+    d = _jax_tables()
+    with pytest.raises(ValueError, match="shape"):
+        CabacTables.from_numpy({**d, "tbl": d["tbl"][:255]})
+    del d["sig4"]
+    with pytest.raises(ValueError, match="missing"):
+        CabacTables.from_numpy(d)
+
+
+def test_pack_ctx4_copy_matches():
+    rng = np.random.default_rng(4)
+    c0 = (rng.integers(0, 63, (C.N_CTX, C.LANES))
+          | (rng.integers(0, 2, (C.N_CTX, C.LANES)) << 6)).astype(np.int32)
+    packed = C._pack_ctx4(c0)
+    np.testing.assert_array_equal(packed, PC._pack_ctx4(c0))
+    np.testing.assert_array_equal(C._unpack_ctx4(packed), PC._unpack_ctx4(packed))
+    np.testing.assert_array_equal(C._unpack_ctx4(packed), c0)
+
+
+@pytest.mark.parametrize("k", [128, None])
+def test_pack_segments_copy_matches(traced, k):
+    rbsp, segs = traced
+    segs = segs if k is None else [_truncate(s, k) for s in segs]
+    for a, b in zip(C.pack_segments(rbsp, segs), PC.pack_segments(rbsp, segs)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_pack_sorted_batches_copy_matches(traced):
+    rbsp, segs = traced
+    entries = [(rbsp, _truncate(s, 40 + 7 * i)) for i, s in enumerate(segs)]
+    got = C.pack_sorted_batches(entries, blk=32)
+    want = PC.pack_sorted_batches(entries, blk=32)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        _assert_same(a, b)
+
+
+def test_pack_windowed_batch_copy_matches(traced):
+    rbsp, segs = traced
+    batch = [(rbsp, _truncate(s, 256)) for s in segs]
+    _assert_same(C.pack_windowed_batch(batch, blk=64),
+                 PC.pack_windowed_batch(batch, blk=64))
+
+
+# --------------------------------------------------------------------------
+# the plain engines vs the Pallas kernels (interpret mode)
+# --------------------------------------------------------------------------
+
+
+def test_replay_plain_matches_pallas(traced):
+    """128-bin prefixes of tile 0's 16 streams: whole bin and state planes
+    (pad lanes included) and the per-segment results."""
+    rbsp, segs = traced
+    trunc = [_truncate(s, 128) for s in segs]
+    words, c0, kinds, slots = C.pack_segments(rbsp, trunc)
+    bins, state = C.cabac_replay_batch(words, c0, kinds, slots, blk=128)
+    jbins, jstate = PC.cabac_replay_batch(words, c0, kinds, slots, blk=128,
+                                          interpret=True)
+    np.testing.assert_array_equal(bins, jbins)
+    np.testing.assert_array_equal(state, jstate)
+    got = C.replay_segments(rbsp, trunc, blk=128)
+    want = PC.replay_segments(rbsp, trunc, interpret=True, blk=128)
+    for i, (g, w) in enumerate(zip(got, want)):
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b, err_msg=f"segment {i}")
+        np.testing.assert_array_equal(g[0], trunc[i].bins)
+
+
+def test_replay_batches_two_batches_match_pallas(traced):
+    """B=2 lane batches in one launch: each re-initialises its own engine
+    and contexts; planes equal the Pallas kernel's."""
+    rbsp, segs = traced
+    segs = [_truncate(s, 128) for s in segs]
+    words, c0, kinds, slots = C.pack_segments(rbsp, segs)
+    kinds2 = kinds.copy()
+    kinds2[64:, :] = KIND_PAD  # the second batch stops early
+    args = (np.stack([words, words]), np.stack([c0, c0]),
+            np.stack([kinds, kinds2]), np.stack([slots, slots]))
+    bins, state = C.cabac_replay_batches(*args, blk=128)
+    jbins, jstate = PC.cabac_replay_batches(*args, blk=128, interpret=True)
+    np.testing.assert_array_equal(bins, jbins)
+    np.testing.assert_array_equal(state, jstate)
+    np.testing.assert_array_equal(bins[0, :64], bins[1, :64])
+    assert not np.array_equal(state[0], state[1])
+
+
+def test_replay_image_input_order(traced):
+    """Length-sorted lane batches: per-entry results come back in input
+    order, equal to the Pallas path's and the golden bins."""
+    rbsp, segs = traced
+    entries = [(rbsp, _truncate(s, 40 + 3 * i)) for i, s in enumerate(segs)]
+    entries = entries[::-1]  # sorting must permute
+    got = C.replay_image(entries, blk=32)
+    want = PC.replay_image(entries, blk=32, interpret=True)
+    for (_, t), g, w in zip(entries, got, want):
+        np.testing.assert_array_equal(g[0], t.bins)
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_replay_windowed_plain_matches_pallas(traced):
+    """256-bin prefixes, 64-bin blocks (3 re-anchors per lane)."""
+    rbsp, segs = traced
+    batch = [(rbsp, _truncate(s, 256)) for s in segs]
+    bins, state = C.replay_windowed_batch(batch, blk=64)
+    jbins, jstate = PC.replay_windowed_batch(batch, blk=64, interpret=True)
+    np.testing.assert_array_equal(bins, jbins)
+    np.testing.assert_array_equal(state, jstate)
+    for i, (_, t) in enumerate(batch):
+        np.testing.assert_array_equal(bins[: t.n_bins, i].astype(np.uint8),
+                                      t.bins)
+
+
+def test_replay_windowed_image_batches_match_pallas(traced):
+    """Two stacked lane batches of different lengths and window sizes, in
+    input order: each lane equals the Pallas windowed kernel's run of its
+    own batch."""
+    rbsp, segs = traced
+    short = [(rbsp, _truncate(s, 64)) for s in segs]
+    long = [(rbsp, _truncate(s, 192)) for s in segs]
+    entries = (long * 4 + short * 5)[::-1]  # 144 streams: two batches
+    got = C.replay_windowed_image(entries, blk=64)
+    for batch in (short, long):
+        bins, state = PC.replay_windowed_batch(batch, blk=64, interpret=True)
+        for lane, e in enumerate(batch):
+            for i in (i for i, x in enumerate(entries) if x is e):
+                np.testing.assert_array_equal(
+                    got[i][0], bins[: e[1].n_bins, lane].astype(np.uint8))
+                np.testing.assert_array_equal(got[i][0], e[1].bins)
+                np.testing.assert_array_equal(got[i][1], state[:, lane] & 63)
+                np.testing.assert_array_equal(got[i][2], state[:, lane] >> 6)
+
+
+# --------------------------------------------------------------------------
+# full streams vs the trace golden (no JAX)
+# --------------------------------------------------------------------------
+
+
+def test_replay_plain_full_tile_matches_golden(traced):
+    rbsp, segs = traced
+    for i, (bins, p_f, mps_f) in enumerate(C.replay_segments(rbsp, segs)):
+        np.testing.assert_array_equal(bins, segs[i].bins, err_msg=f"seg {i}")
+        np.testing.assert_array_equal(p_f, segs[i].p_final)
+        np.testing.assert_array_equal(mps_f, segs[i].mps_final)
+
+
+def test_replay_windowed_plain_full_tile_matches_golden(traced):
+    rbsp, segs = traced
+    bins, state = C.replay_windowed_batch([(rbsp, s) for s in segs], blk=256)
+    for i, s in enumerate(segs):
+        np.testing.assert_array_equal(bins[: s.n_bins, i].astype(np.uint8),
+                                      s.bins, err_msg=f"seg {i}")
+        np.testing.assert_array_equal(state[:, i] & 63, s.p_final)
+        np.testing.assert_array_equal(state[:, i] >> 6, s.mps_final)
+
+
+def test_wrappers_check_their_inputs():
+    w = torch.zeros((1, 8, C.LANES), dtype=torch.int32)
+    c0 = torch.zeros((1, C.N_CTX, C.LANES), dtype=torch.int32)
+    k = torch.full((1, 4, C.LANES), KIND_PAD, dtype=torch.int32)
+    bins, state = C.replay(w, c0, k, torch.zeros_like(k))
+    assert bins.shape == k.shape and torch.equal(state, c0)
+    with pytest.raises(TypeError):
+        C.replay(w.long(), c0, k, k)
+    with pytest.raises(ValueError, match="shape"):
+        C.replay(w, c0[:, :100], k, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        C.replay(w, c0, k, torch.zeros((1, C.LANES, 4), dtype=torch.int32).mT)
+    with pytest.raises(ValueError, match="blocks"):
+        C.replay_windowed(torch.zeros((1, 2, 8, C.LANES), dtype=torch.int32),
+                          torch.zeros((1, 2, C.LANES), dtype=torch.int32),
+                          c0[:, : C.N_CTXP], k[:, :3], k[:, :3] * 0)
+
+
+def test_srl_is_logical_and_xla_bounded():
+    x = torch.tensor([-1, -(1 << 31), 5, 1 << 30], dtype=torch.int32)
+    np.testing.assert_array_equal(C.srl(x, 28).numpy(), [15, 8, 0, 4])
+    n = torch.tensor([32, 0, -1, 30], dtype=torch.int32)
+    np.testing.assert_array_equal(C.srl(x, n).numpy(), [0, -(1 << 31), 0, 1])
+    np.testing.assert_array_equal(C.shl(x, n).numpy(), [0, -(1 << 31), 0, 0])
+
+
+def test_device_timing_refuses_the_cpu(traced):
+    """The bench entry points time with CUDA events: no CPU numbers."""
+    rbsp, segs = traced
+    seg = _truncate(segs[0], 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        C.bench_device_entropy([(rbsp, seg)], device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        C.bench_replay_device(*C.pack_segments(rbsp, [seg]), device="cpu")
+
+
+# --------------------------------------------------------------------------
+# on a card: the kernels vs the plain versions
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_replay_kernels_match_plain_on_card(traced, cuda):
+    rbsp, segs = traced
+    words, c0, kinds, slots = C.pack_segments(rbsp, segs)
+    args = [torch.from_numpy(a[None].copy()).to(cuda)
+            for a in (words, c0, kinds, slots)]
+    for a, b in zip(C.replay(*args), C.replay_plain(*args)):
+        assert torch.equal(a, b)
+    p = C.pack_windowed_batch([(rbsp, s) for s in segs], blk=256)
+    wargs = C.windowed_inputs(p, cuda)
+    for a, b in zip(C.replay_windowed(*wargs), C.replay_windowed_plain(*wargs)):
+        assert torch.equal(a, b)
