@@ -28,7 +28,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      through HeicDecoder.decode_hevc(entropy="device-gen", device="cuda")
      must equal ref_recon and launch the generator and both intra
      kernels; then `python -m heif_tpu_torch decode tile.hevc --entropy
-     device-gen -o out.npz` once as a subprocess, held equal too.
+     device-gen -o out.npz` once as a subprocess, held equal too;
+  9. the bulk paths: decode_reconstruct_overlapped on all 48 flagship
+     tiles with readback at the default chunk and at chunk=48 (both
+     equal to the one-batch tile stacks of phase 4's path, and stitched
+     equal to phase 4's decode), decode to device (readback=False), and
+     decode_burst of 4 flagship images (48 tiles each); the intra
+     kernels must launch in each; walls, MP/s, the host stage split,
+     the intra kernel time per chunk, the device's idle share, and the
+     one-batch decode() wall from the same run;
+ 10. the tile split: decode(mesh_devices=1) equals phase 4, and a
+     one-process nccl group runs decode_burst_sharded in a subprocess,
+     equal to phase 4 and launching both kernels.
 The last two lines are a JSON summary of the kernels and the card's
 nvidia-smi line before a final {"ok": true, "device": {...}} line.
 Without a CUDA device it exits 2 before doing anything. Any import of
@@ -51,6 +62,9 @@ ORACLE_TILES = (1, 22, 24, 38, 46)
 HEVC_TILES = (1, 22, 24)
 PREFIX = 2048  # bins (replays) / steps (generator) of the plain comparison
 KERNEL_SOURCE = "heif_tpu_torch/csrc/intra.cu"
+REPS = 3  # timed runs of each bulk path (phase 9)
+BURST = 4  # images in the burst (phase 9)
+BACKEND = "nccl"  # process-group backend of phase 10
 
 
 def card_line() -> str:
@@ -76,10 +90,8 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def load_flagship(data: bytes):
-    """Parse and entropy-decode every tile of the flagship grid."""
-    from heif_tpu import native
-    from heif_tpu.cabac.syntax import TileSyntaxDecoder
+def parse_flagship(data: bytes):
+    """SPS, PPS, tile ids and parsed slice headers of the flagship grid."""
     from heif_tpu.container.reader import HeifReader
     from heif_tpu.hevc import params
     from heif_tpu.hevc import slice as sl
@@ -99,6 +111,15 @@ def load_flagship(data: bytes):
             sps, pps)
         for t in tile_ids
     ]
+    return sps, pps, tile_ids, slices
+
+
+def load_flagship(data: bytes):
+    """Parse and entropy-decode every tile of the flagship grid."""
+    from heif_tpu import native
+    from heif_tpu.cabac.syntax import TileSyntaxDecoder
+
+    sps, pps, tile_ids, slices = parse_flagship(data)
     if native.available():
         sts = native.decode_tiles_parallel(sps, pps, slices)
     else:
@@ -400,6 +421,267 @@ def check_hevc_slice(data, sps, pps, tile_ids, slices, sts, dev, card) -> dict:
     return launches
 
 
+def _same_stacks(got, ref, what):
+    for c, k in enumerate(("Y", "Cb", "Cr")):
+        if got[c].shape != ref[c].shape or not np.array_equal(got[c], ref[c]):
+            raise SystemExit(f"{what}: {k} differs from the one-batch tile "
+                             "stacks")
+
+
+def _launched(what) -> dict:
+    """The intra launch counts since the last reset; fail unless both
+    kernels ran."""
+    from heif_tpu_torch.ops import intra as I
+
+    counts = dict(I.LAUNCHES)
+    for name, count in counts.items():
+        if count <= 0:
+            raise SystemExit(f"{what} never launched the {name} kernel")
+    return counts
+
+
+def _device_stacks(chunks):
+    import torch
+
+    return [torch.cat([ch[c] for ch in chunks]).cpu().numpy()
+            for c in range(3)]
+
+
+def intra_kernel_ms(bp, dev) -> float:
+    """Luma + chroma intra kernel time (CUDA events, 5 runs) on bp."""
+    from heif_tpu_torch.ops import batch as B
+    from heif_tpu_torch.ops import intra as I
+
+    d = B.plan_to_device(bp, dev)
+    res = B.residual_planes(d, bp, dev)
+    srcs = B.source_tables(d, bp)
+    steps, counts, pcm = d["steps"], d["counts"], d["pcm"]
+    H, W = bp.height, bp.width
+    luma = cuda_ms(lambda: I.intra_scan_luma(
+        res[0], steps[0], srcs[0], counts[0], pcm[0], h=H, w=W,
+        strong_smoothing=bp.strong_smoothing, bd=bp.bit_depth_y), 5)
+    chroma = cuda_ms(lambda: I.intra_scan_chroma2(
+        res[1], res[2], steps[1], srcs[1], counts[1], pcm[1], pcm[2],
+        h=H // 2, w=W // 2, bd=bp.bit_depth_c), 5)
+    return luma + chroma
+
+
+def check_bulk(data, out4, sts, dev, card) -> dict:
+    """Phase 9: the bulk paths on all 48 flagship tiles, each held equal
+    to the one-batch tile stacks (the path of phase 4's decode, whose
+    stitch must equal phase 4's output), each launching both kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from heif_tpu.utils.profiling import DecodeStats
+    from heif_tpu_torch import HeicDecoder
+    from heif_tpu_torch.ops import batch as B
+    from heif_tpu_torch.ops import intra as I
+
+    info = out4["info"]
+    mp = info.ispe_width * info.ispe_height / 1e6
+    sps, pps, _, slices = parse_flagship(data)
+    n = len(slices)
+    chunk = B.schedule_hints(None, sps, pps, n)["chunk"]
+    tiles = B.reconstruct_tiles(sts, sps, pps, slices, device=dev)
+    ref = [np.stack([t[c] for t in tiles]) for c in range(3)]
+
+    def stitch(stacks, sps_):
+        return HeicDecoder._stitch([[p[i] for p in stacks] for i in range(n)],
+                                   info.grid, sps_, True, info.rotation)
+
+    for k, p in stitch(ref, sps).items():
+        if not np.array_equal(p, out4[k]):
+            raise SystemExit(f"one-batch tile stacks stitch to a {k} plane "
+                             "unlike phase 4's decode")
+    out = {"chunk": chunk, "mp": mp}
+
+    # readback=True at the default chunk and at one chunk of 48, then
+    # timed in turns, end to end as a caller runs them (slice headers,
+    # the overlapped decode, stitch) beside the one-batch decode()
+    for c in (chunk, n):
+        I.reset_launches()
+        _same_stacks(B.decode_reconstruct_overlapped(
+            sps, pps, slices, chunk=c, device=dev), ref, f"overlapped chunk={c}")
+        out[f"launches_chunk{c}"] = _launched(f"overlapped chunk={c}")
+
+    def e2e(c):
+        t0 = time.perf_counter()
+        s_sps, s_pps, _, s_slices = parse_flagship(data)
+        got = B.decode_reconstruct_overlapped(s_sps, s_pps, s_slices,
+                                              chunk=c, device=dev)
+        planes = stitch(got, s_sps)
+        wall = time.perf_counter() - t0
+        _same_stacks(got, ref, f"overlapped chunk={c}")
+        return wall, planes
+
+    walls = {f"chunk{chunk}": [], f"chunk{n}": [], "decode": []}
+    for _ in range(REPS):
+        for c in (chunk, n):
+            wall, planes = e2e(c)
+            walls[f"chunk{c}"].append(wall)
+        t0 = time.perf_counter()
+        got = HeicDecoder.decode(data, device="cuda")
+        walls["decode"].append(time.perf_counter() - t0)
+        for k in ("Y", "Cb", "Cr"):
+            if not (np.array_equal(got[k], out4[k])
+                    and np.array_equal(planes[k], out4[k])):
+                raise SystemExit(f"{k}: a timed decode differs from phase 4")
+    out["walls_s"] = walls
+    for key, ws in walls.items():
+        print(f"[bulk] e2e {key}: {' '.join(f'{w * 1e3:.1f}' for w in ws)} ms"
+              f"; best {mp / min(ws):.2f} MP/s ({mp:.2f} MP) on {card}")
+
+    # the host stage split, stats on (core runs without stats: no sync)
+    for c in (chunk, n):
+        stats = DecodeStats()
+        t0 = time.perf_counter()
+        B.decode_reconstruct_overlapped(sps, pps, slices, chunk=c,
+                                        stats=stats, device=dev)
+        wall = time.perf_counter() - t0
+        stages = {k: v * 1e3 for k, v in stats.stages.items()}
+        out[f"stages_ms_chunk{c}"] = stages
+        print(f"[bulk] stage split chunk={c}, wall {wall * 1e3:.1f} ms: "
+              + " ".join(f"{k}={v:.1f}ms" for k, v in stages.items()))
+
+    # the device's idle share over one overlapped decode
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        B.decode_reconstruct_overlapped(sps, pps, slices, device=dev)
+        wall = time.perf_counter() - t0
+    on_card = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and not e.is_user_annotation]
+    busy_us = sum(e.self_device_time_total for e in on_card)
+    out["profiled_wall_ms"] = wall * 1e3
+    out["device_busy_ms"] = busy_us / 1e3
+    out["device_ops"] = sum(e.count for e in on_card)
+    print(f"[bulk] profiled overlapped decode chunk={chunk}: wall "
+          f"{wall * 1e3:.1f} ms, device activity {busy_us / 1e3:.1f} ms in "
+          f"{out['device_ops']} kernels and copies, idle "
+          f"{100 * (1 - busy_us / 1e3 / (wall * 1e3)):.1f}% on {card}")
+
+    # intra kernel time: chunks of the default size in series vs one 48
+    split = sum(intra_kernel_ms(B.pack_batch(sts[lo : lo + chunk], sps, pps,
+                                             slices[lo : lo + chunk]), dev)
+                for lo in range(0, n, chunk))
+    whole = intra_kernel_ms(B.pack_batch(sts, sps, pps, slices), dev)
+    out["intra_ms"] = {f"chunk{chunk}": split, f"chunk{n}": whole}
+    print(f"[bulk] intra kernels (luma + chroma): {n // chunk} chunks of "
+          f"{chunk} {split:.3f} ms, one of {n} {whole:.3f} ms on {card}")
+
+    # decode to device: per-chunk CUDA planes, only real tiles
+    dev_walls = []
+    for _ in range(REPS):
+        I.reset_launches()
+        t0 = time.perf_counter()
+        chunks = B.decode_reconstruct_overlapped(sps, pps, slices,
+                                                 readback=False, device=dev)
+        torch.cuda.synchronize()
+        dev_walls.append(time.perf_counter() - t0)
+        out["launches_to_device"] = _launched("decode to device")
+        if (sum(ch[0].shape[0] for ch in chunks) != n
+                or any(p.device.type != dev.type or p.dtype != torch.uint8
+                       for ch in chunks for p in ch)):
+            raise SystemExit("decode to device: wrong tile count, device or "
+                             "dtype")
+        _same_stacks(_device_stacks(chunks), ref, "decode to device")
+    out["to_device_s"] = dev_walls
+    print(f"[bulk] decode to device: "
+          f"{' '.join(f'{w * 1e3:.1f}' for w in dev_walls)} ms; best "
+          f"{mp / min(dev_walls):.2f} MP/s on {card}")
+
+    # burst: BURST images through one entropy queue
+    burst_walls = []
+    for _ in range(2):
+        lists = [parse_flagship(data)[3] for _ in range(BURST)]
+        I.reset_launches()
+        t0 = time.perf_counter()
+        outs = B.decode_burst(sps, pps, lists, device=dev)
+        torch.cuda.synchronize()
+        burst_walls.append(time.perf_counter() - t0)
+        out["launches_burst"] = _launched("decode_burst")
+        if len(outs) != BURST:
+            raise SystemExit(f"decode_burst: {len(outs)} images of {BURST}")
+        for ii, img in enumerate(outs):
+            _same_stacks(_device_stacks(img), ref, f"burst image {ii}")
+    out["burst_s"] = burst_walls
+    print(f"[bulk] burst of {BURST}: "
+          f"{' '.join(f'{w * 1e3:.1f}' for w in burst_walls)} ms; best "
+          f"{BURST * mp / min(burst_walls):.2f} MP/s on {card}")
+    return out
+
+
+_BURST_WORKER = """
+import json, sys
+sys.modules["jax"] = None
+import numpy as np
+from heif_tpu_torch.ops import intra as I
+from heif_tpu_torch.parallel import distributed as D
+assert D.init_distributed(backend=sys.argv[3])
+outs, res = D.decode_burst_sharded([open(sys.argv[1], "rb").read()])
+np.savez(sys.argv[2], **outs[0])
+import torch.distributed as dist
+print(json.dumps({"launches": dict(I.LAUNCHES), "burst": res.as_dict(),
+                  "backend": dist.get_backend()}))
+dist.destroy_process_group()
+"""
+
+
+def check_split(data, out4, card) -> dict:
+    """Phase 10: decode(mesh_devices=1) and a one-process nccl group's
+    decode_burst_sharded (in a subprocess), both equal to phase 4."""
+    import socket
+    import tempfile
+
+    from heif_tpu_torch import HeicDecoder
+    from heif_tpu_torch.ops import intra as I
+
+    I.reset_launches()
+    t0 = time.perf_counter()
+    got = HeicDecoder.decode(data, device="cuda", mesh_devices=1)
+    wall = time.perf_counter() - t0
+    out = {"mesh1_s": wall, "launches_mesh1": _launched("decode(mesh_devices=1)")}
+    for k in ("Y", "Cb", "Cr"):
+        if not np.array_equal(got[k], out4[k]):
+            raise SystemExit(f"decode(mesh_devices=1): {k} differs from phase 4")
+    print(f"[split] decode(mesh_devices=1) equals phase 4; {wall * 1e3:.1f} ms, "
+          f"launches {out['launches_mesh1']} on {card}")
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+               WORLD_SIZE="1", RANK="0", PYTHONPATH=ROOT)
+    with tempfile.TemporaryDirectory() as tmp:
+        dst = os.path.join(tmp, "burst.npz")
+        proc = subprocess.run([sys.executable, "-c", _BURST_WORKER, ASSET, dst,
+                               BACKEND],
+                              cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"nccl decode_burst_sharded failed "
+                             f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+        rep = json.loads(proc.stdout.strip().splitlines()[-1])
+        planes = np.load(dst)
+        for k in ("Y", "Cb", "Cr"):
+            if not np.array_equal(np.rot90(planes[k], k=out4["info"].rotation),
+                                  out4[k]):
+                raise SystemExit(f"nccl decode_burst_sharded: {k} differs "
+                                 "from phase 4")
+    for name, count in rep["launches"].items():
+        if count <= 0:
+            raise SystemExit(f"nccl decode_burst_sharded never launched the "
+                             f"{name} kernel")
+    if rep["backend"] != BACKEND or rep["burst"]["n_processes"] != 1:
+        raise SystemExit(f"nccl decode_burst_sharded: {rep}")
+    out["burst_sharded"] = rep
+    print(f"[split] world-size-1 {rep['backend']} decode_burst_sharded equals "
+          f"phase 4; {rep['burst']}; launches {rep['launches']} on {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -509,6 +791,16 @@ def main() -> int:
     t0 = time.perf_counter()
     hevc = check_hevc_slice(data, sps, pps, tile_ids, slices, sts, dev, card)
     print(f"[hevc] phase took {time.perf_counter() - t0:.1f} s")
+
+    # phase 9: the bulk paths
+    t0 = time.perf_counter()
+    check_bulk(data, out, sts, dev, card)
+    print(f"[bulk] phase took {time.perf_counter() - t0:.1f} s")
+
+    # phase 10: the tile split
+    t0 = time.perf_counter()
+    check_split(data, out, card)
+    print(f"[split] phase took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, replaces in (("luma", "heif_tpu/ops/pallas_intra.py:420"),

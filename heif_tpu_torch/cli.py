@@ -4,7 +4,7 @@ verify / bench (port of heif_tpu/cli.py).
   python -m heif_tpu_torch probe  IMAGE.heic
   python -m heif_tpu_torch decode IMAGE.heic [-o out.ppm|out.npz]
                                   [--device cuda|cpu] [--item ID]
-                                  [--isolate-errors] [--stats]
+                                  [--mesh N] [--isolate-errors] [--stats]
   python -m heif_tpu_torch decode STREAM.hevc [--entropy auto|device-gen]
   python -m heif_tpu_torch verify IMAGE.heic     # vs the libde265 oracle
   python -m heif_tpu_torch bench  IMAGE.heic [-n 3]
@@ -229,7 +229,9 @@ def main(argv=None) -> int:
                     help="decode this item id instead of the primary "
                          "(containers only)")
     pd.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="multi-device decode (not ported yet: raises)")
+                    help="split the tiles over N devices: the first N "
+                         "CUDA cards, or N CPU shards with --device cpu "
+                         "(containers only)")
     pd.add_argument("--isolate-errors", action="store_true",
                     help="corrupt tiles decode as gray instead of failing "
                          "the image (containers only)")

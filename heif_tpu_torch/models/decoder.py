@@ -5,7 +5,8 @@ Port of heif_tpu/models/decoder.py (HeicDecoder.decode, decode_hevc and
 _entropy_device_gen). The container, header and entropy layers and the
 output assembly (probe, _stitch, _select_vcl_nal, to_rgb) are heif_tpu's
 own, imported unchanged; reconstruction runs in heif_tpu_torch.ops.batch,
-all tiles in one batch; device-side entropy runs in ops.cabac_gen.
+all tiles in one batch (or split over a mesh of devices by
+parallel.pipeline); device-side entropy runs in ops.cabac_gen.
 """
 
 from __future__ import annotations
@@ -49,9 +50,13 @@ class HeicDecoder:
           aborting the image.
         stats: optional heif_tpu.utils.profiling.DecodeStats; receives
           stage wall times (entropy, pack, h2d, residual, intra, deblock,
-          sao, d2h, stitch). With stats on CUDA each device stage ends in
-          a synchronize so its time is its own.
-        mesh_devices: not ported yet (raises NotImplementedError).
+          sao, d2h, stitch; with a mesh: entropy, sharded, stitch). With
+          stats on CUDA each device stage ends in a synchronize so its
+          time is its own.
+        mesh_devices: split the tiles over N devices
+          (parallel.pipeline.decode_grid_sharded): the first N CUDA
+          devices (RuntimeError if fewer exist), or N CPU shards when
+          device is "cpu". Tiles-enabled pictures decode on the mesh too.
         """
         from heif_tpu import native
         from heif_tpu.cabac.syntax import TileSyntaxDecoder
@@ -60,13 +65,16 @@ class HeicDecoder:
         from heif_tpu.hevc.rbsp import remove_emulation_prevention
         from heif_tpu_torch.device import resolve_device
         from heif_tpu_torch.ops.batch import reconstruct_tiles, schedule_hints
+        from heif_tpu_torch.parallel.pipeline import (
+            decode_grid_sharded,
+            make_mesh,
+        )
 
-        if mesh_devices:
-            raise NotImplementedError(
-                "mesh_devices: multi-device decode is not ported to "
-                "heif_tpu_torch yet"
-            )
         device = resolve_device(device)
+        mesh = None
+        if mesh_devices:
+            mesh = (make_mesh(devices=[device] * mesh_devices)
+                    if device.type == "cpu" else make_mesh(mesh_devices))
 
         reader = HeifReader(data)
         heif = reader.read()
@@ -143,6 +151,9 @@ class HeicDecoder:
         if stats is not None:
             stats.scheduler = dict(hints)
             stats.scheduler["device"] = str(device)
+            if mesh is not None:
+                stats.scheduler["mesh"] = [str(d) for d in mesh]
+                stats.n_devices = len(mesh)
 
         # tile-clamped SAO (tiles with loop_filter_across_tiles=0 + SAO)
         # exists only in the host reference; fail at once instead of
@@ -188,9 +199,20 @@ class HeicDecoder:
         if not slices_good:
             raise ValueError("no decodable tiles")
 
-        tiles_good = reconstruct_tiles(
-            syntaxes_good, sps, pps, slices_good, device=device, stats=stats
-        )
+        if mesh is None:
+            tiles_good = reconstruct_tiles(
+                syntaxes_good, sps, pps, slices_good, device=device,
+                stats=stats,
+            )
+        else:
+            t0 = time.perf_counter()
+            planes3 = decode_grid_sharded(
+                syntaxes_good, sps, pps, slices_good, mesh=mesh
+            )
+            tiles_good = [[p[i] for p in planes3]
+                          for i in range(len(syntaxes_good))]
+            if stats is not None:
+                stats.stages["sharded"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         if bad:

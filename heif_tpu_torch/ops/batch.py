@@ -2,21 +2,31 @@
 
 Host half (numpy, no torch): a copy of the numpy packer of
 heif_tpu/ops/batch.py — CLASSES, BatchPlan, _scaling_for_sps, pack_batch
-(the per-TU-table path), _finish_plan and schedule_hints — unchanged in
-behaviour. It is copied, not imported, because heif_tpu.ops.batch
-imports jax at module level and the port must run where jax is absent.
-tests/test_torch_decode.py holds the copy against the original.
+(the per-TU-table path and the native pre-pack path, _assemble_packed),
+_finish_plan and schedule_hints — unchanged in behaviour. It is copied,
+not imported, because heif_tpu.ops.batch imports jax at module level and
+the port must run where jax is absent. tests/test_torch_decode.py and
+tests/test_torch_overlap.py hold the copy against the original.
 
 Device half (torch): `core` is the port of heif_tpu.ops.batch._core.
 Transform classes are flattened across tiles (one dense [k, s, s] batch
 per (component, size) class), the intra walks run all tiles at once
 (one CUDA block per tile), and deblock / SAO run over the tile axis.
-All tiles of an image go in one batch: there is no chunking.
+
+Entry points: reconstruct_tiles (all tiles of an image in one batch, the
+path of HeicDecoder.decode) and the bulk paths, which cut the tiles into
+chunks: reconstruct_pipelined, decode_reconstruct_overlapped (host
+entropy of chunk k+1 on a worker thread while chunk k is packed and on
+the device; async readback or decode-to-device) and decode_burst (the
+chunks of many images through one entropy queue). Each chunk packs at
+its own minimal shape: nothing is compiled per shape, so the reference's
+sticky shape caps are not needed, and chunks hold only real tiles.
 """
 
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from dataclasses import dataclass
 
@@ -119,6 +129,17 @@ def pack_batch(
     st0 = syntaxes[0]
     H, W = st0.height, st0.width
     Hc, Wc = H // 2, W // 2
+
+    if all(
+        getattr(st, "packed", None) is not None and st.packed.pad == PAD
+        for st in syntaxes
+    ):
+        xs, counts_out, tc = _assemble_packed(
+            syntaxes, n, H, W, n_steps, class_caps
+        )
+        return _finish_plan(
+            syntaxes, sps, pps, slices, n, H, W, *tc, xs, counts_out
+        )
 
     tts = [st.tu_table for st in syntaxes]
     lens = np.fromiter((t.shape[0] for t in tts), np.int64, n)
@@ -248,6 +269,77 @@ def pack_batch(
         tc_coeffs, tc_qp, tc_dst, tc_skip, tc_bypass, tc_org,
         xs, counts_out,
     )
+
+
+def _assemble_packed(syntaxes, n, H, W, n_steps, class_caps):
+    """The plan tensors from native per-tile packs (st.packed, made by
+    heif_tpu.native.pack_tile_native inside the entropy workers): segment
+    copies only, no per-TU work on the calling thread. Returns (xs,
+    counts, (tc_coeffs, tc_qp, tc_dst, tc_skip, tc_bypass, tc_org))."""
+    Hc, Wc = H // 2, W // 2
+    packs = [st.packed for st in syntaxes]
+    counts = np.array(
+        [[p.scans[c].shape[1] for c in range(3)] for p in packs], np.int32
+    ).reshape(n, 3)
+    if n_steps is None:
+        n_steps = [max(1, -(-int(s) // 64) * 64) for s in counts.max(axis=0)]
+
+    xs = []
+    for c in range(3):
+        S = n_steps[c]
+        if S < int(counts[:, c].max()):
+            raise ValueError(
+                f"n_steps[{c}]={S} < {int(counts[:, c].max())} TUs")
+        fields = [np.zeros((n, S), np.int32) for _ in range(6)]
+        for i, p in enumerate(packs):
+            sc = p.scans[c]
+            for f in range(6):
+                fields[f][i, : sc.shape[1]] = sc[f]
+        xs.append(tuple(fields))
+    counts_out = [counts[:, c].copy() for c in range(3)]
+
+    tc_coeffs, tc_qp, tc_dst, tc_skip, tc_bypass, tc_org = (
+        {}, {}, {}, {}, {}, {},
+    )
+    for ci, (comp, size) in enumerate(CLASSES):
+        ks = [int(p.cls_counts[ci]) for p in packs]
+        k = sum(ks)
+        cap = None if class_caps is None else class_caps.get((comp, size), 0)
+        if not k and not cap:
+            continue
+        key = (comp, size)
+        total = k if cap is None else cap
+        if k > total:
+            raise ValueError(f"class {key}: {k} > cap {cap}")
+        h = H if comp == 0 else Hc
+        w = W if comp == 0 else Wc
+        stride = (h + PAD) * (w + PAD)
+        coeffs = np.zeros((total, size, size), np.int16)
+        qp = np.zeros(total, np.int32)
+        dst = np.full(total, comp == 0 and size == 4, dtype=bool)
+        skip = np.zeros(total, bool)
+        byp = np.zeros(total, bool)
+        org = np.full(total, -1, np.int32)
+        lo = 0
+        for i, p in enumerate(packs):
+            if not ks[i]:
+                continue
+            blocks, meta = p.cls[ci]
+            hi = lo + ks[i]
+            coeffs[lo:hi] = blocks
+            qp[lo:hi] = meta[0]
+            skip[lo:hi] = meta[1]
+            byp[lo:hi] = meta[2]
+            np.add(meta[3], np.int32(i * stride), out=org[lo:hi])
+            lo = hi
+        tc_coeffs[key] = coeffs
+        tc_qp[key] = qp
+        tc_dst[key] = dst
+        tc_skip[key] = skip
+        tc_bypass[key] = byp
+        tc_org[key] = org
+    tc = (tc_coeffs, tc_qp, tc_dst, tc_skip, tc_bypass, tc_org)
+    return xs, counts_out, tc
 
 
 def _finish_plan(
@@ -566,13 +658,23 @@ def _sao(planes, d, bp, dims):
     return out
 
 
+def out_dtype(bd_y: int, bd_c: int) -> torch.dtype:
+    """Device dtype of decoded planes: uint8 up to 8 bits, int16 above.
+    torch's uint16 support is thin; int16 holds every sample of up to 15
+    bits, and the host view of it is uint16 (host_view)."""
+    return torch.uint8 if max(bd_y, bd_c) <= 8 else torch.int16
+
+
+def host_view(t: torch.Tensor) -> np.ndarray:
+    a = t.numpy()
+    return a.view(np.uint16) if a.dtype == np.int16 else a
+
+
 def planes_to_host(planes, bd_y: int, bd_c: int, device, stats=None) -> list:
-    """[N, h, w] int32 device planes -> uint8 numpy (uint16 above 8 bits;
-    torch's uint16 support is thin, so that cast happens in numpy)."""
+    """[N, h, w] int32 device planes -> uint8 numpy (uint16 above 8 bits)."""
+    dt = out_dtype(bd_y, bd_c)
     with _stage(stats, "d2h", device):
-        if max(bd_y, bd_c) <= 8:
-            return [p.to(torch.uint8).cpu().numpy() for p in planes]
-        return [p.to(torch.int16).cpu().numpy().astype(np.uint16) for p in planes]
+        return [host_view(p.to(dt).cpu()) for p in planes]
 
 
 def reconstruct_batch(bp: BatchPlan, device="cuda", stats=None) -> list:
@@ -598,3 +700,248 @@ def reconstruct_tiles(syntaxes, sps, pps, slices, device="cuda",
         )
     planes = reconstruct_batch(bp, device, stats)
     return [[planes[0][i], planes[1][i], planes[2][i]] for i in range(bp.n)]
+
+
+# --------------------------------------------------------------------------
+# bulk paths: chunked, overlapped, decode-to-device, burst
+# --------------------------------------------------------------------------
+
+
+def device_planes(bp: BatchPlan, device: torch.device) -> list:
+    """H2D + core for one packed chunk, queued on the current stream with
+    no synchronize: [Y, Cb, Cr] contiguous [N, h, w] device planes in
+    out_dtype."""
+    device = resolve_device(device)
+    planes = core(plan_to_device(bp, device), bp, device)
+    dt = out_dtype(bp.bit_depth_y, bp.bit_depth_c)
+    return [p.to(dtype=dt, memory_format=torch.contiguous_format)
+            for p in planes]
+
+
+class Readback:
+    """Async D2H of device planes into pinned host tensors.
+
+    On CUDA each submit orders a side stream after the current (compute)
+    stream, copies there non_blocking into freshly allocated pinned
+    tensors, marks the source with record_stream (so the allocator does
+    not hand its memory to later work before the copy has read it) and
+    records one event. No pinned buffer is ever rewritten: the caching
+    host allocator frees a block for reuse only after the work recorded
+    on it has completed. drain() waits on each event. On the CPU the
+    planes are already host tensors.
+    """
+
+    def __init__(self):
+        self._streams: dict = {}
+        self._pending: list = []
+
+    def submit(self, planes: list) -> None:
+        dev = planes[0].device
+        if dev.type != "cuda":
+            self._pending.append((planes, None))
+            return
+        side = self._streams.get(dev)
+        if side is None:
+            side = self._streams[dev] = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        host = []
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            for p in planes:
+                h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                h.copy_(p, non_blocking=True)
+                p.record_stream(side)
+                host.append(h)
+            ev = torch.cuda.Event()
+            ev.record(side)
+        self._pending.append((host, ev))
+
+    def drain(self) -> list:
+        """Per submit, in order, the [Y, Cb, Cr] numpy planes (uint8, or
+        uint16 above 8 bits)."""
+        out = []
+        for host, ev in self._pending:
+            if ev is not None:
+                ev.synchronize()
+            out.append([host_view(h) for h in host])
+        self._pending = []
+        return out
+
+
+def stack_chunks(per_chunk: list) -> list:
+    return [np.concatenate([o[c] for o in per_chunk], axis=0) for c in range(3)]
+
+
+def reconstruct_pipelined(syntaxes, sps, pps, slices, chunk: int = 12,
+                          device="cuda") -> list:
+    """Chunked counterpart of reconstruct_tiles: chunks of `chunk` tiles
+    are packed, shipped and queued one after another, each chunk's
+    readback overlapping the next chunk's pack. Returns [Y, Cb, Cr]
+    stacked numpy planes of all N tiles (uint8, or uint16 above 8 bits)."""
+    device = resolve_device(device)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    rb = Readback()
+    for lo in range(0, len(syntaxes), chunk):
+        bp = pack_batch(syntaxes[lo : lo + chunk], sps, pps,
+                        slices[lo : lo + chunk])
+        rb.submit(device_planes(bp, device))
+    return stack_chunks(rb.drain())
+
+
+def default_entropy(sps, pps, hints: dict):
+    """The overlapped paths' entropy: native C++ with pack_pad=PAD, so
+    each worker also pre-packs its tile and pack_batch only copies
+    segments (GIL released inside); the Python twin without native."""
+    from heif_tpu import native
+
+    if native.available():
+        workers = hints.get("entropy_workers")
+        return lambda ps: native.decode_tiles_parallel(
+            sps, pps, ps, pack_pad=PAD, max_workers=workers
+        )
+    from heif_tpu.cabac.syntax import TileSyntaxDecoder
+
+    return lambda ps: [TileSyntaxDecoder(sps, pps, p).decode() for p in ps]
+
+
+def _mark(stats, name: str, t0: float) -> None:
+    if stats is not None:
+        stats.stages[name] = stats.stages.get(name, 0.0) + (
+            time.perf_counter() - t0
+        )
+
+
+def _timed_entropy(entropy_fn, stats):
+    if stats is None:
+        return entropy_fn
+
+    def timed(ps):
+        t0 = time.perf_counter()
+        out = entropy_fn(ps)
+        _mark(stats, "entropy", t0)
+        return out
+
+    return timed
+
+
+def run_chunks(chunks, entropy_fn, step, stats=None) -> None:
+    """The overlapped loop. A one-thread executor runs entropy_fn over
+    every chunk of slices in order (native entropy releases the GIL and
+    fans out to its own pool; that thread never touches torch). This
+    thread waits for each chunk's syntax and calls step(i, syntaxes,
+    slices), which packs and queues device work without synchronizing.
+    stats: entropy_wait (this thread blocked on entropy)."""
+    ex = ThreadPoolExecutor(max_workers=1)
+    try:
+        futs = [ex.submit(entropy_fn, c) for c in chunks]
+        for i, (sl_chunk, fut) in enumerate(zip(chunks, futs)):
+            t0 = time.perf_counter()
+            syn = list(fut.result())
+            _mark(stats, "entropy_wait", t0)
+            step(i, syn, list(sl_chunk))
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+
+
+def _run_one_device(sps, pps, chunks, entropy_fn, device, stats, sink):
+    """run_chunks on one device: each chunk is packed, H2D + core are
+    queued on the current stream and the device planes go to sink(i,
+    planes). core runs without stats (its per-stage synchronize would
+    serialise the pipeline), so stats time host work only: entropy
+    (worker wall), entropy_wait, pack, dispatch (H2D + launches +
+    sink)."""
+
+    def step(i, syn, sl):
+        t0 = time.perf_counter()
+        bp = pack_batch(syn, sps, pps, sl)
+        _mark(stats, "pack", t0)
+        t0 = time.perf_counter()
+        sink(i, device_planes(bp, device))
+        _mark(stats, "dispatch", t0)
+
+    run_chunks(chunks, _timed_entropy(entropy_fn, stats), step, stats)
+
+
+def decode_reconstruct_overlapped(
+    sps, pps, slices, entropy_fn=None, chunk: int | None = None,
+    readback: bool = True, stats=None, hints: dict | None = None,
+    device="cuda",
+) -> list:
+    """Full tile decode with host entropy overlapped against the device.
+
+    Entropy of chunk k+1 runs on a worker thread while chunk k is packed
+    and queued on the device (run_chunks). chunk=None takes the stream
+    hints' chunk (schedule_hints: 16, or 8 for fine spatial segments).
+
+    readback=True: returns [Y, Cb, Cr] stacked numpy planes of all N
+    tiles (uint8, or uint16 above 8 bits); each chunk's D2H runs on a
+    side stream as soon as its planes are queued (Readback).
+    readback=False (decode to device): returns one [y, cb, cr] list per
+    chunk of contiguous device tensors in out_dtype (uint8, or int16
+    above 8 bits), without waiting for the device. Chunks hold only
+    real tiles: the last one may be shorter.
+
+    stats: optional DecodeStats; records the scheduler hints and host
+    stage times entropy, entropy_wait, pack, dispatch and, with
+    readback, readback (the drain). Overlapped stages sum to more than
+    the wall by design.
+    """
+    device = resolve_device(device)
+    if hints is None:
+        hints = schedule_hints(None, sps, pps, len(slices))
+    if stats is not None:
+        stats.scheduler = hints
+    if entropy_fn is None:
+        entropy_fn = default_entropy(sps, pps, hints)
+    if chunk is None:
+        chunk = hints.get("chunk", 16)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    chunks = [slices[lo : lo + chunk] for lo in range(0, len(slices), chunk)]
+    if not readback:
+        outs = []
+        _run_one_device(sps, pps, chunks, entropy_fn, device, stats,
+                        lambda i, planes: outs.append(planes))
+        return outs
+    rb = Readback()
+    _run_one_device(sps, pps, chunks, entropy_fn, device, stats,
+                    lambda i, planes: rb.submit(planes))
+    t0 = time.perf_counter()
+    out = stack_chunks(rb.drain())
+    _mark(stats, "readback", t0)
+    return out
+
+
+def decode_burst(sps, pps, image_slice_lists, chunk: int | None = None,
+                 hints: dict | None = None, stats=None, device="cuda"):
+    """Pipelined multi-image decode to device: the chunks of all images
+    (sharing sps / pps geometry) go through one entropy queue, so host
+    entropy of image k+1 overlaps pack and device work of image k.
+
+    Returns a list (per image) of lists (per chunk) of [y, cb, cr]
+    device tensors in out_dtype, without waiting for the device
+    (torch.cuda.synchronize to wait for the last image). Each image's
+    chunks hold exactly its own tiles, in order. stats as in
+    decode_reconstruct_overlapped (no readback stage).
+    """
+    device = resolve_device(device)
+    if not image_slice_lists:
+        return []
+    if hints is None:
+        hints = schedule_hints(None, sps, pps, len(image_slice_lists[0]))
+    if stats is not None:
+        stats.scheduler = hints
+    if chunk is None:
+        chunk = hints.get("chunk", 16)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    owner, chunks = [], []
+    for ii, slices in enumerate(image_slice_lists):
+        for lo in range(0, len(slices), chunk):
+            owner.append(ii)
+            chunks.append(list(slices[lo : lo + chunk]))
+    outs = [[] for _ in image_slice_lists]
+    _run_one_device(sps, pps, chunks, default_entropy(sps, pps, hints),
+                    device, stats,
+                    lambda i, planes: outs[owner[i]].append(planes))
+    return outs

@@ -272,8 +272,10 @@ def test_decode_isolates_a_corrupt_tile():
 
 
 def test_decode_refuses_what_it_cannot_do(halfmoonbay_bytes):
-    with pytest.raises(NotImplementedError):
-        HeicDecoder.decode(halfmoonbay_bytes, device="cpu", mesh_devices=2)
+    if torch.cuda.device_count() < 2:
+        # a mesh of CUDA devices that do not exist
+        with pytest.raises(RuntimeError, match="CUDA"):
+            HeicDecoder.decode(halfmoonbay_bytes, mesh_devices=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             HeicDecoder.decode(halfmoonbay_bytes)

@@ -7,7 +7,8 @@
   port vs heif_tpu.HeicDecoder.decode_hevc(entropy="device-gen") and vs
   libde265;
 - the CLI (python -m heif_tpu_torch): probe and decode of the Annex-B
-  tile, the raw-input detection and the options it refuses;
+  tile, the raw-input detection and the options it refuses, and --mesh
+  on a container;
 - the new modules import and run with jax unimportable.
 """
 
@@ -197,10 +198,27 @@ def test_cli_garbage_input_goes_to_the_container_reader(tmp_path):
     assert "Annex" not in str(exc.value)
 
 
-def test_cli_mesh_on_container_is_not_ported():
-    path = ROOT / "tests" / "assets" / "halfmoonbay.heic"
-    with pytest.raises(NotImplementedError):
-        cli.main(["decode", str(path), "--device", "cpu", "--mesh", "2"])
+def test_cli_mesh_on_container_is_not_ported(tmp_path):
+    """--mesh on a container goes to the sharded decode: N CPU shards with
+    --device cpu (equal to the one-batch decode), the first N CUDA cards
+    otherwise (RuntimeError where fewer exist)."""
+    from heif_tpu.utils.heif_mux import mux_heic
+    from heif_tpu.utils.hevc_synth import synthesize_tiled_intra_stream
+
+    path = tmp_path / "tiles.heic"
+    path.write_bytes(mux_heic([synthesize_tiled_intra_stream(
+        96, 64, (2, 2), seed=5)]))
+    outs = []
+    for mesh in (["--mesh", "2"], []):
+        dst = tmp_path / f"out{len(mesh)}.npz"
+        assert cli.main(["decode", str(path), "--device", "cpu", *mesh,
+                         "-o", str(dst)]) == 0
+        outs.append(np.load(dst))
+    for k in ("Y", "Cb", "Cr"):
+        np.testing.assert_array_equal(outs[0][k], outs[1][k])
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["decode", str(path), "--mesh", "2"])
 
 
 def test_new_modules_run_without_jax():
