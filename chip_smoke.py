@@ -39,7 +39,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      one-batch decode() wall from the same run;
  10. the tile split: decode(mesh_devices=1) equals phase 4, and a
      one-process nccl group runs decode_burst_sharded in a subprocess,
-     equal to phase 4 and launching both kernels.
+     equal to phase 4 and launching both kernels;
+ 11. the entry points a user runs: `python -m heif_tpu_torch decode
+     IMAGE --trace -o x.npz` through cli.main equals phase 4, and its
+     torch.profiler trace holds one CUDA kernel event for each launch of
+     both intra kernels (then the same decode untraced, timed beside
+     it); `decode tile1.hevc --backend ref` equals phase 4's tile 1; the
+     burst tool (heif_tpu_torch.tools.bench_burst.run, 4 images after a
+     warm-up) prints its JSON line and launches both kernels once a chunk
+     of each image; the device entropy tools (bench_device_entropy
+     run_replay and run_gen) check and time all 768 substreams of phase
+     5; `pytest tests/test_torch_card.py` passes with nothing skipped.
 The last two lines are a JSON summary of the kernels and the card's
 nvidia-smi line before a final {"ok": true, "device": {...}} line.
 Without a CUDA device it exits 2 before doing anything. Any import of
@@ -183,50 +193,35 @@ def check_kernels(label: str, bp, dev) -> dict:
     return out
 
 
+def tile_planes(out: dict, i: int, sps) -> list:
+    """The Y, Cb and Cr planes of tile i (grid order) of a decoded grid
+    image, cut to the crop at the grid's right and bottom edges."""
+    info = out["info"]
+    r, c = divmod(i, info.grid.columns)
+    th, tw = sps.pic_height_in_luma_samples, sps.pic_width_in_luma_samples
+    planes = []
+    for ci, k in enumerate(("Y", "Cb", "Cr")):
+        h, w = (th, tw) if ci == 0 else (th // 2, tw // 2)
+        p = np.rot90(out[k], k=-info.rotation)
+        planes.append(p[r * h : (r + 1) * h, c * w : (c + 1) * w])
+    return planes
+
+
 def oracle_check(out: dict, sps, pps, tile_ids, slices, sts):
     """Tiles ORACLE_TILES of the decoded image vs ref_recon, bit for bit."""
     from heif_tpu.ops.ref_recon import reconstruct_tile
 
-    info = out["info"]
-    cols = info.grid.columns
-    th, tw = sps.pic_height_in_luma_samples, sps.pic_width_in_luma_samples
-    planes = [np.rot90(out[k], k=-info.rotation) for k in ("Y", "Cb", "Cr")]
     for tid in ORACLE_TILES:
         i = tile_ids.index(tid)
         gold = reconstruct_tile(sts[i], sps, pps, slices[i].header)
-        r, c = divmod(i, cols)
-        for ci, name in enumerate(("Y", "Cb", "Cr")):
-            sub = 1 if ci == 0 else 2
-            h, w = th // sub, tw // sub
-            got = planes[ci][r * h : (r + 1) * h, c * w : (c + 1) * w]
+        for ci, (name, got) in enumerate(zip(("Y", "Cb", "Cr"),
+                                             tile_planes(out, i, sps))):
             want = gold[ci][: got.shape[0], : got.shape[1]]
             bad = int((got.astype(int) != want.astype(int)).sum())
             if bad:
                 raise SystemExit(f"tile {tid} {name}: {bad} samples differ "
                                  "from ref_recon")
     print(f"[oracle] tiles {list(ORACLE_TILES)} equal ref_recon bit for bit")
-
-
-def trace_flagship(sps, pps, slices):
-    """Phase 5: envelope trace of every tile. Returns replay entries
-    (rbsp, segment), generator entries (rbsp, segment, tape, n_steps,
-    spans), the tile of each stream and each tile's golden coefficient
-    planes."""
-    from heif_tpu.cabac.envelope import build_envelope_tape, envelope_trace
-
-    rentries, gentries, tile_of, goldens = [], [], [], []
-    for ti, ps in enumerate(slices):
-        tr = envelope_trace(sps, pps, ps)
-        rbsp = bytes(ps.rbsp)
-        goldens.append(tr.syntax.coeffs)
-        for si, seg in enumerate(tr.segments):
-            tape, n_steps = build_envelope_tape(tr, si)
-            spans = sorted((sp for sp in tr.spans if sp.seg == si),
-                           key=lambda sp: sp.b0)
-            rentries.append((rbsp, seg))
-            gentries.append((rbsp, seg, tape, n_steps, spans))
-            tile_of.append(ti)
-    return rentries, gentries, tile_of, goldens
 
 
 def _same_ctx(res, segs, what):
@@ -682,6 +677,148 @@ def check_split(data, out4, card) -> dict:
     return out
 
 
+def _same_planes(got, want, what):
+    for k in ("Y", "Cb", "Cr"):
+        if not np.array_equal(got[k], want[k]):
+            raise SystemExit(f"{what}: {k} differs from phase 4")
+
+
+def _intra_events(path: str) -> dict:
+    """Kernel events of the intra walk in a torch.profiler Chrome trace:
+    {kernel name: count}."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        name = str(e.get("name", ""))
+        if str(e.get("cat", "")).lower() == "kernel" and "intra_walk" in name:
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def check_entry_points(data, out4, sps, pps, n_tiles, rentries, gentries,
+                       goldens, tile_of, dev, card) -> dict:
+    """Phase 11: the entry points a user runs. (a) `decode --trace`
+    through cli.main, equal to phase 4, its trace holding every intra
+    launch as a CUDA kernel event; (b) the burst tool; (c) the device
+    entropy tools on phase 5's 768 substreams; (d) the JAX-free card test
+    file under pytest, nothing skipped; (e) `decode --backend ref` of
+    tile 1 as an Annex-B stream, equal to phase 4's tile."""
+    import glob
+    import tempfile
+
+    from heif_tpu_torch import cli
+    from heif_tpu_torch.ops import batch as B
+    from heif_tpu_torch.ops import cabac as C
+    from heif_tpu_torch.ops import cabac_gen as G
+    from heif_tpu_torch.ops import intra as I
+    from heif_tpu_torch.tools import bench_burst
+    from heif_tpu_torch.tools import bench_device_entropy as BDE
+    from heif_tpu_torch.utils import profiling
+    from heif_tpu_torch.utils.annexb import tile_annexb
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) traced decode, then the same command untraced
+        logdir = profiling.DEFAULT_LOGDIR
+        profiling.DEFAULT_LOGDIR = os.path.join(tmp, "trace")
+        dst = os.path.join(tmp, "x.npz")
+        try:
+            I.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main(["decode", ASSET, "--device", "cuda", "--trace",
+                           "-o", dst])
+            out["traced_s"] = time.perf_counter() - t0
+            launches = dict(I.LAUNCHES)
+        finally:
+            profiling.DEFAULT_LOGDIR = logdir
+        if rc != 0:
+            raise SystemExit(f"decode --trace returned {rc}")
+        _same_planes(np.load(dst), out4, "decode --trace")
+        traces = glob.glob(os.path.join(tmp, "trace", "*.pt.trace.json"))
+        if len(traces) != 1:
+            raise SystemExit(f"decode --trace wrote {len(traces)} trace files")
+        kernels = _intra_events(traces[0])
+        print(f"[entry] decode --trace: intra kernel events {kernels}, "
+              f"launches {launches}")
+        if (len(kernels) != 2 or min(launches.values()) <= 0
+                or sum(kernels.values()) != sum(launches.values())):
+            raise SystemExit("the trace does not hold one CUDA kernel event "
+                             "for each launch of both intra kernels")
+        t0 = time.perf_counter()
+        if cli.main(["decode", ASSET, "--device", "cuda", "-o", dst]) != 0:
+            raise SystemExit("decode (untraced) failed")
+        out["untraced_s"] = time.perf_counter() - t0
+        _same_planes(np.load(dst), out4, "decode")
+        print(f"[entry] cli decode -o x.npz: traced {out['traced_s'] * 1e3:.1f}"
+              f" ms, untraced {out['untraced_s'] * 1e3:.1f} ms on {card}")
+
+        # (e) --backend ref on tile 1 as a raw stream
+        src = os.path.join(tmp, "tile1.hevc")
+        with open(src, "wb") as f:
+            f.write(tile_annexb(data, 1))
+        t0 = time.perf_counter()
+        if cli.main(["decode", src, "--backend", "ref", "--device", "cuda",
+                     "-o", dst]) != 0:
+            raise SystemExit("decode --backend ref failed")
+        got = np.load(dst)
+        for k, want in zip(("Y", "Cb", "Cr"), tile_planes(out4, 1, sps)):
+            if not np.array_equal(got[k][: want.shape[0], : want.shape[1]],
+                                  want):
+                raise SystemExit(f"decode --backend ref of tile 1: {k} "
+                                 "differs from phase 4")
+        print(f"[entry] decode tile1.hevc --backend ref equals phase 4's tile "
+              f"1; {(time.perf_counter() - t0) * 1e3:.1f} ms on {card}")
+
+    # (b) the burst tool: a warm-up image and BURST timed ones
+    chunks = -(-n_tiles // B.schedule_hints(None, sps, pps, n_tiles)["chunk"])
+    I.reset_launches()
+    res = bench_burst.run(data, BURST, dev)
+    want = (BURST + 1) * chunks
+    keys = {"metric", "value", "unit", "images", "megapixels_total", "wall_s",
+            "per_image_s", "best_image_mp_s"}
+    if set(res) != keys or not res["value"] > 0:
+        raise SystemExit(f"bench_burst: {res}")
+    if I.LAUNCHES != {"luma": want, "chroma": want}:
+        raise SystemExit(f"bench_burst launched {I.LAUNCHES}, expected "
+                         f"{want} of each intra kernel")
+    out["burst"] = res
+    print(f"[entry] bench_burst {json.dumps(res)} on {card}")
+
+    # (c) the device entropy tools on every substream, timed
+    for name, fn, counts, reset in (
+        ("replay", lambda: BDE.run_replay(rentries, dev), C.LAUNCHES,
+         C.reset_launches),
+        ("gen", lambda: BDE.run_gen(gentries, goldens, tile_of, dev),
+         G.LAUNCHES, G.reset_launches),
+    ):
+        reset()
+        t0 = time.perf_counter()
+        res = fn()
+        if counts[name] <= 0 or not res["value"] > 0:
+            raise SystemExit(f"bench_device_entropy {name}: {res}, launches "
+                             f"{counts}")
+        out[name] = res
+        print(f"[entry] bench_device_entropy {json.dumps(res)} on {card}; "
+              f"{res['streams']} streams bit-exact, "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    # (d) the card test file
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-rs", "tests/test_torch_card.py"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    if proc.returncode != 0 or "passed" not in tail or "skipped" in tail:
+        raise SystemExit(f"tests/test_torch_card.py ({proc.returncode}): "
+                         f"{proc.stdout[-4000:]}\n{proc.stderr[-2000:]}")
+    print(f"[entry] pytest tests/test_torch_card.py: {tail}; "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -699,6 +836,7 @@ def main() -> int:
     from heif_tpu_torch.ops import _build
     from heif_tpu_torch.ops import batch as B
     from heif_tpu_torch.ops import intra as I
+    from heif_tpu_torch.tools import bench_device_entropy as BDE
     from heif_tpu_torch.utils.synthetic import synthetic_batch
 
     dev = torch.device("cuda")
@@ -769,9 +907,10 @@ def main() -> int:
         print(f"[slice] {label}: {wall * 1e3:.1f} ms, {mp / wall:.2f} MP/s "
               f"({mp:.2f} MP) on {card}; {stages}")
 
-    # phase 5
+    # phase 5: generator entries; the replays take their (rbsp, segment)
     t0 = time.perf_counter()
-    rentries, gentries, tile_of, goldens = trace_flagship(sps, pps, slices)
+    gentries, goldens, tile_of = BDE.trace_entries(data, gen=True)
+    rentries = [e[:2] for e in gentries]
     n_bins = sum(s.n_bins for _, s in rentries)
     print(f"[trace] {len(slices)} tiles -> {len(rentries)} substreams, "
           f"{n_bins} bins, at most {max(e[3] for e in gentries)} generator "
@@ -801,6 +940,12 @@ def main() -> int:
     t0 = time.perf_counter()
     check_split(data, out, card)
     print(f"[split] phase took {time.perf_counter() - t0:.1f} s")
+
+    # phase 11: the user entry points
+    t0 = time.perf_counter()
+    check_entry_points(data, out, sps, pps, len(slices), rentries, gentries,
+                       goldens, tile_of, dev, card)
+    print(f"[entry] phase took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, replaces in (("luma", "heif_tpu/ops/pallas_intra.py:420"),

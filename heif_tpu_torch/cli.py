@@ -3,8 +3,9 @@ verify / bench (port of heif_tpu/cli.py).
 
   python -m heif_tpu_torch probe  IMAGE.heic
   python -m heif_tpu_torch decode IMAGE.heic [-o out.ppm|out.npz]
-                                  [--device cuda|cpu] [--item ID]
-                                  [--mesh N] [--isolate-errors] [--stats]
+                                  [--device cuda|cpu] [--backend torch|ref]
+                                  [--item ID] [--mesh N] [--isolate-errors]
+                                  [--stats] [--trace]
   python -m heif_tpu_torch decode STREAM.hevc [--entropy auto|device-gen]
   python -m heif_tpu_torch verify IMAGE.heic     # vs the libde265 oracle
   python -m heif_tpu_torch bench  IMAGE.heic [-n 3]
@@ -12,7 +13,11 @@ verify / bench (port of heif_tpu/cli.py).
 Input that starts with an Annex-B start code (00 00 01 or 00 00 00 01)
 is a raw HEVC stream and goes to HeicDecoder.decode_hevc; anything else
 is a HEIF container and goes to HeicDecoder.decode. Options that apply
-to only one of the two are refused on the other.
+to only one of the two are refused on the other. --backend (decode,
+verify, bench) picks the reconstruction: torch (the port, on --device)
+or ref (heif_tpu's host numpy reference). decode --trace writes a
+torch.profiler trace of the decode into
+heif_tpu_torch.utils.profiling.DEFAULT_LOGDIR and prints its path.
 """
 
 from __future__ import annotations
@@ -100,9 +105,23 @@ def cmd_probe(args) -> int:
     return 0
 
 
+def _decode(args, data: bytes, **kwargs) -> dict:
+    """Planes of `data` with the command's backend and device: a raw
+    stream through decode_hevc (kwargs: its entropy), a container
+    through decode (kwargs: its options)."""
+    from heif_tpu_torch import HeicDecoder
+
+    if is_annexb(data):
+        return HeicDecoder.decode_hevc(data, backend=args.backend,
+                                       device=args.device, **kwargs)
+    return HeicDecoder.decode(data, backend=args.backend, device=args.device,
+                              **kwargs)
+
+
 def cmd_decode(args) -> int:
     from heif_tpu.utils.profiling import DecodeStats
     from heif_tpu_torch import HeicDecoder
+    from heif_tpu_torch.utils import profiling
 
     data = _read(args.file)
     raw = is_annexb(data)
@@ -121,23 +140,23 @@ def cmd_decode(args) -> int:
               file=sys.stderr)
         return 2
     stats = DecodeStats()
-    t0 = time.perf_counter()
-    if raw:
-        planes = HeicDecoder.decode_hevc(data, entropy=args.entropy,
-                                         device=args.device)
-    else:
-        planes = HeicDecoder.decode(
-            data, mesh_devices=args.mesh,
-            isolate_tile_errors=args.isolate_errors, item_id=args.item,
-            stats=stats, device=args.device,
-        )
-    dt = time.perf_counter() - t0
+    options = ({"entropy": args.entropy} if raw else
+               {"mesh_devices": args.mesh, "item_id": args.item,
+                "isolate_tile_errors": args.isolate_errors, "stats": stats})
+    with profiling.device_trace(args.trace, profiling.DEFAULT_LOGDIR,
+                                args.device) as trace:
+        t0 = time.perf_counter()
+        planes = _decode(args, data, **options)
+        dt = time.perf_counter() - t0
     y = planes["Y"]
     mp = y.size / 1e6
     stats.megapixels = mp
     stats.stages["total"] = dt
     print(f"decoded {y.shape[1]}x{y.shape[0]} ({mp:.1f} MP) in {dt:.3f}s "
-          f"[{args.device}]", file=sys.stderr)
+          f"[{args.backend} on {args.device}{', traced' if args.trace else ''}]",
+          file=sys.stderr)
+    if trace.path:
+        print(f"trace: {trace.path}", file=sys.stderr)
     if args.stats:
         print(stats.json(), file=sys.stderr)
     if stats.tile_errors:
@@ -160,11 +179,14 @@ def cmd_decode(args) -> int:
 def cmd_verify(args) -> int:
     """Bit-exact plane comparison against the libde265 oracle."""
     from heif_tpu.utils import oracle
-    from heif_tpu_torch import HeicDecoder
 
     data = _read(args.file)
-    ours = HeicDecoder.decode(data, apply_rotation=False, device=args.device)
-    golden = oracle.decode_heic_via_de265(data)
+    if is_annexb(data):
+        ours = _decode(args, data)
+        golden = dict(zip(("Y", "Cb", "Cr"), oracle.decode_hevc_annexb(data)))
+    else:
+        ours = _decode(args, data, apply_rotation=False)
+        golden = oracle.decode_heic_via_de265(data)
     ok = True
     for k in ("Y", "Cb", "Cr"):
         a, b = ours[k], golden[k]
@@ -185,14 +207,12 @@ def cmd_verify(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    from heif_tpu_torch import HeicDecoder
-
     data = _read(args.file)
-    HeicDecoder.decode(data, device=args.device)  # warm-up
+    _decode(args, data)  # warm-up
     times = []
     for _ in range(args.n):
         t0 = time.perf_counter()
-        planes = HeicDecoder.decode(data, device=args.device)
+        planes = _decode(args, data)
         times.append(time.perf_counter() - t0)
     mp = planes["Y"].size / 1e6
     best = min(times)
@@ -202,6 +222,7 @@ def cmd_bench(args) -> int:
         "unit": "megapixels/s",
         "best_s": round(best, 4),
         "runs": args.n,
+        "backend": args.backend,
         "device": args.device,
     }))
     return 0
@@ -216,6 +237,10 @@ def main(argv=None) -> int:
         sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda (default; fails without a CUDA device) "
                              "or cpu (the plain PyTorch path)")
+        sp.add_argument("--backend", default="torch", choices=["torch", "ref"],
+                        help="reconstruction: torch (default; the port on "
+                             "--device) or ref (heif_tpu's host numpy "
+                             "reference)")
 
     pp = sub.add_parser("probe", help="container metadata only")
     pp.add_argument("file")
@@ -242,6 +267,10 @@ def main(argv=None) -> int:
                          "residual bin on --device)")
     pd.add_argument("--stats", action="store_true",
                     help="print per-stage decode stats JSON to stderr")
+    pd.add_argument("--trace", action="store_true",
+                    help="capture a torch.profiler trace of the decode "
+                         "(CUDA kernels included on --device cuda) and "
+                         "print its path")
     pd.set_defaults(fn=cmd_decode)
 
     pv = sub.add_parser("verify", help="bit-exact check vs libde265 oracle")

@@ -6,7 +6,8 @@ _entropy_device_gen). The container, header and entropy layers and the
 output assembly (probe, _stitch, _select_vcl_nal, to_rgb) are heif_tpu's
 own, imported unchanged; reconstruction runs in heif_tpu_torch.ops.batch,
 all tiles in one batch (or split over a mesh of devices by
-parallel.pipeline); device-side entropy runs in ops.cabac_gen.
+parallel.pipeline), or with backend="ref" in heif_tpu's host reference
+(ops.ref_recon); device-side entropy runs in ops.cabac_gen.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ class HeicDecoder:
     @staticmethod
     def decode(
         data: bytes,
+        backend: str = "torch",
         apply_rotation: bool = True,
         item_id: Optional[int] = None,
         mesh_devices: Optional[int] = None,
@@ -43,6 +45,9 @@ class HeicDecoder:
 
         Returns {"Y", "Cb", "Cr", "info"} like heif_tpu's decode: uint8
         numpy planes (uint16 above 8 bits; Cb/Cr None for monochrome).
+        backend: "torch" (the default: the port's batched reconstruction
+          on `device`) or "ref" (heif_tpu's host numpy reference,
+          ops.ref_recon, tile by tile; it takes no mesh_devices).
         device: "cuda" (default; raises without a usable CUDA device) or
           "cpu" (the plain PyTorch path). Nothing falls back silently.
         isolate_tile_errors: a corrupt tile yields a mid-gray tile and an
@@ -50,9 +55,10 @@ class HeicDecoder:
           aborting the image.
         stats: optional heif_tpu.utils.profiling.DecodeStats; receives
           stage wall times (entropy, pack, h2d, residual, intra, deblock,
-          sao, d2h, stitch; with a mesh: entropy, sharded, stitch). With
-          stats on CUDA each device stage ends in a synchronize so its
-          time is its own.
+          sao, d2h, stitch; with a mesh: entropy, sharded, stitch; with
+          backend "ref": entropy, recon, stitch) and
+          scheduler["effective_backend"]. With stats on CUDA each device
+          stage ends in a synchronize so its time is its own.
         mesh_devices: split the tiles over N devices
           (parallel.pipeline.decode_grid_sharded): the first N CUDA
           devices (RuntimeError if fewer exist), or N CPU shards when
@@ -70,6 +76,11 @@ class HeicDecoder:
             make_mesh,
         )
 
+        if backend not in ("torch", "ref"):
+            raise ValueError(f"unknown backend {backend!r} (torch or ref)")
+        if backend == "ref" and mesh_devices:
+            raise ValueError("mesh_devices needs backend 'torch': the host "
+                             "reference decodes on no mesh")
         device = resolve_device(device)
         mesh = None
         if mesh_devices:
@@ -151,6 +162,7 @@ class HeicDecoder:
         if stats is not None:
             stats.scheduler = dict(hints)
             stats.scheduler["device"] = str(device)
+            stats.scheduler["effective_backend"] = backend
             if mesh is not None:
                 stats.scheduler["mesh"] = [str(d) for d in mesh]
                 stats.n_devices = len(mesh)
@@ -199,7 +211,15 @@ class HeicDecoder:
         if not slices_good:
             raise ValueError("no decodable tiles")
 
-        if mesh is None:
+        if backend == "ref":
+            from heif_tpu.ops.ref_recon import reconstruct_tile
+
+            t0 = time.perf_counter()
+            tiles_good = [reconstruct_tile(st, sps, pps, ps.header)
+                          for st, ps in zip(syntaxes_good, slices_good)]
+            if stats is not None:
+                stats.stages["recon"] = time.perf_counter() - t0
+        elif mesh is None:
             tiles_good = reconstruct_tiles(
                 syntaxes_good, sps, pps, slices_good, device=device,
                 stats=stats,
@@ -261,7 +281,6 @@ class HeicDecoder:
         planes. Raises ValueError if a substream's final context state
         differs from the host decoder's.
         """
-        from heif_tpu.cabac.envelope import build_envelope_tape, envelope_trace
         from heif_tpu_torch.ops import cabac_gen as G
 
         if pps.tiles_enabled_flag:
@@ -269,17 +288,8 @@ class HeicDecoder:
                 "device-gen entropy does not take tile-segmented "
                 "substreams yet"
             )
-        tr = envelope_trace(sps, pps, ps)
-        rbsp = ps.rbsp if isinstance(ps.rbsp, bytes) else bytes(ps.rbsp)
-        entries = []
-        for si, seg in enumerate(tr.segments):
-            tape, n_steps = build_envelope_tape(tr, si)
-            spans = sorted(
-                (sp for sp in tr.spans if sp.seg == si), key=lambda sp: sp.b0
-            )
-            entries.append((rbsp, seg, tape, n_steps, spans))
+        entries, st = G.envelope_entries(sps, pps, ps)
         results = G.gen_image(entries, device=device)
-        st = tr.syntax
         # the device's coefficients replace the host's
         st.coeffs = [np.zeros_like(p) for p in st.coeffs]
         for ei, (events_col, p_fin, mps_fin) in enumerate(results):

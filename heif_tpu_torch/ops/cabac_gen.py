@@ -131,6 +131,26 @@ def pack_gen_batches(entries):
     ]
 
 
+def envelope_entries(sps, pps, ps):
+    """The host envelope trace of one parsed slice, as generator input.
+
+    Returns (entries, syntax): one (rbsp, TraceSegment, envelope_tape,
+    n_steps, spans) tuple per substream, its spans in decode order, and
+    the host decoder's SyntaxTensors (whose coeffs are the golden
+    coefficient planes)."""
+    from heif_tpu.cabac.envelope import build_envelope_tape, envelope_trace
+
+    tr = envelope_trace(sps, pps, ps)
+    rbsp = bytes(ps.rbsp)
+    entries = []
+    for si, seg in enumerate(tr.segments):
+        tape, n_steps = build_envelope_tape(tr, si)
+        spans = sorted((sp for sp in tr.spans if sp.seg == si),
+                       key=lambda sp: sp.b0)
+        entries.append((rbsp, seg, tape, n_steps, spans))
+    return entries, tr.syntax
+
+
 _SCANS = {}
 
 

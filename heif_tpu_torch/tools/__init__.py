@@ -1,0 +1,59 @@
+"""Measurement tools of the port (ports of tools/bench_burst.py and
+tools/bench_device_entropy.py), run as
+
+    python -m heif_tpu_torch.tools.bench_burst [image.heic] [n_images]
+    python -m heif_tpu_torch.tools.bench_device_entropy [image.heic] [--gen]
+
+Each splits its body into functions that return the JSON line's dict, so
+chip_smoke.py and the tests call them without a subprocess.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+DEFAULT_IMAGE = str(Path(__file__).resolve().parents[2] / "tests" / "assets"
+                    / "halfmoonbay.heic")
+
+
+def image_slices(data: bytes):
+    """(sps, pps, slices, megapixels) of the primary item of a HEIF file:
+    the parsed slice header of each grid tile, in grid order, or of the
+    item itself. NAL units are split with the hvcC record's length size
+    and each item's one VCL NAL is picked by heif_tpu's _select_vcl_nal,
+    as HeicDecoder.decode does. megapixels is the grid's output size, or
+    the coded picture's for a single item."""
+    from heif_tpu.container import grammar as g
+    from heif_tpu.container.reader import HeifReader, parse_grid_config
+    from heif_tpu.hevc import params
+    from heif_tpu.hevc import slice as sl
+    from heif_tpu.hevc.rbsp import remove_emulation_prevention
+    from heif_tpu.models.decoder import _select_vcl_nal
+
+    reader = HeifReader(data)
+    heif = reader.read()
+    primary = heif.primary_item_id()
+    info = heif.item_info_by_item_id(primary)
+    grid = None
+    tile_ids = [primary]
+    if info is not None and info.item_type == g.ItemType.GRID:
+        grid = parse_grid_config(reader.get_item_data(primary))
+        tile_ids = heif.item_ids_referencing(primary, "dimg")
+    rec = heif.hevc_configuration_record(tile_ids[0])
+    if rec is None:
+        raise ValueError(f"item {tile_ids[0]} has no hvcC record")
+    sps = params.parse_sps(
+        remove_emulation_prevention(rec.nal_units_of_type(33)[0][2:]))
+    pps = params.parse_pps(
+        remove_emulation_prevention(rec.nal_units_of_type(34)[0][2:]))
+    length_size = rec.length_size_minus_one + 1
+    slices = [
+        sl.parse_slice_header(_select_vcl_nal(sl.split_length_prefixed_nals(
+            reader.get_item_data(t), length_size)), sps, pps)
+        for t in tile_ids
+    ]
+    if grid is not None:
+        mp = grid.output_width * grid.output_height / 1e6
+    else:
+        mp = sps.pic_width_in_luma_samples * sps.pic_height_in_luma_samples / 1e6
+    return sps, pps, slices, mp

@@ -1,0 +1,165 @@
+"""heif_tpu_torch on a CUDA card, without JAX.
+
+The host with the card has no JAX, so this file imports only torch,
+numpy, heif_tpu_torch and the JAX-free layers of heif_tpu (container,
+hevc, cabac, native, ops.ref_recon, utils): never jax, heif_tpu.ops.batch,
+heif_tpu.ops.jax_recon, heif_tpu.ops.pallas_* or heif_tpu.parallel. Its
+references are the port's plain PyTorch versions and heif_tpu's host
+numpy reconstruction. Tolerance 0 throughout.
+
+On a card (`cuda`-marked; each skips without one):
+- both intra kernels vs their plain walks on a synthetic 10-bit batch
+  with PCM blocks and strong smoothing;
+- the replay, windowed replay and generator kernels vs their plain
+  versions on flagship tile 1's 16 WPP substreams, cut to PREFIX bins
+  (replays) or steps (generator);
+- decode_hevc(device="cuda") of flagship tile 1 as an Annex-B stream,
+  with both entropy front ends, vs backend="ref".
+Anywhere: this file and every module of heif_tpu_torch import with jax
+made unimportable.
+
+On the card: python -m pytest -q tests/test_torch_card.py
+"""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from heif_tpu.cabac.trace import TraceSegment, trace_tile
+from heif_tpu_torch import HeicDecoder
+from heif_tpu_torch.ops import batch as B
+from heif_tpu_torch.ops import cabac as C
+from heif_tpu_torch.ops import cabac_gen as G
+from heif_tpu_torch.ops import intra as I
+from heif_tpu_torch.tools import image_slices
+from heif_tpu_torch.utils.annexb import tile_annexb
+from heif_tpu_torch.utils.synthetic import synthetic_batch
+
+ROOT = Path(__file__).resolve().parents[1]
+TILE = 1  # flagship tile (grid order) of the CABAC and decode tests
+PREFIX = 512  # bins (replays) / steps (generator) of the plain comparison
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def tile_traces(cuda, halfmoonbay_bytes):
+    """Flagship tile TILE: rbsp, its trace segments and its generator
+    entries (rbsp, seg, envelope_tape, n_steps, spans)."""
+    sps, pps, slices, _ = image_slices(halfmoonbay_bytes)
+    ps = slices[TILE]
+    entries, _ = G.envelope_entries(sps, pps, ps)
+    return bytes(ps.rbsp), trace_tile(sps, pps, ps), entries
+
+
+def _prefix(seg, k: int) -> TraceSegment:
+    t = TraceSegment(byte_start=seg.byte_start, byte_end=seg.byte_end)
+    t.p0, t.mps0 = seg.p0, seg.mps0
+    t.kinds, t.slots, t.bins = seg.kinds[:k], seg.slots[:k], seg.bins[:k]
+    t.positions = seg.positions[:k]
+    return t
+
+
+def _same(got, want):
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_intra_kernels_match_plain_walks(cuda):
+    bp = B.pack_batch(*synthetic_batch(n=4, size=128, bd=10, pcm=True,
+                                       strong_smoothing=True, seed=7))
+    d = B.plan_to_device(bp, cuda)
+    res = B.residual_planes(d, bp, cuda)
+    srcs = B.source_tables(d, bp)
+    steps, counts, pcm = d["steps"], d["counts"], d["pcm"]
+    luma = dict(h=bp.height, w=bp.width, strong_smoothing=bp.strong_smoothing,
+                bd=bp.bit_depth_y)
+    chroma = dict(h=bp.height // 2, w=bp.width // 2, bd=bp.bit_depth_c)
+    luma_args = (res[0], steps[0], srcs[0], counts[0], pcm[0])
+    chroma_args = (res[1], res[2], steps[1], srcs[1], counts[1], pcm[1], pcm[2])
+    I.reset_launches()
+    got = (I.intra_scan_luma(*luma_args, **luma),
+           *I.intra_scan_chroma2(*chroma_args, **chroma))
+    assert I.LAUNCHES == {"luma": 1, "chroma": 1}
+    want = (I.luma_plain(*luma_args, **luma),
+            *I.chroma2_plain(*chroma_args, **chroma))
+    torch.cuda.synchronize()
+    _same(got, want)
+
+
+@pytest.mark.cuda
+def test_replay_kernels_match_plain(cuda, tile_traces):
+    rbsp, segs, _ = tile_traces
+    cut = [_prefix(s, PREFIX) for s in segs]
+    args = [C.as_tensor(a[None], cuda) for a in C.pack_segments(rbsp, cut)]
+    C.reset_launches()
+    got = C.replay(*args)
+    assert C.LAUNCHES["replay"] == 1
+    _same(got, C.replay_plain(*args))
+    wargs = C.windowed_inputs(
+        C.pack_windowed_batch([(rbsp, s) for s in cut], blk=256), cuda)
+    got = C.replay_windowed(*wargs)
+    assert C.LAUNCHES["windowed"] == 1
+    _same(got, C.replay_windowed_plain(*wargs))
+
+
+@pytest.mark.cuda
+def test_gen_kernel_matches_plain(cuda, tile_traces):
+    lanes = [(rb, s, t, min(ns, PREFIX)) for rb, s, t, ns, _ in tile_traces[2]]
+    p = G.pack_gen_batch(lanes)
+    args = [C.as_tensor(p[k][None], cuda) for k in ("words", "tape", "c0")]
+    G.reset_launches()
+    got = G.gen(*args, p["S_steps"], debug=True)
+    assert G.LAUNCHES["gen"] == 1
+    _same(got, G.gen_plain(*args, p["S_steps"], debug=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entropy", ["auto", "device-gen"])
+def test_decode_hevc_on_card_equals_ref(cuda, halfmoonbay_bytes, entropy):
+    stream = tile_annexb(halfmoonbay_bytes, TILE)
+    I.reset_launches()
+    got = HeicDecoder.decode_hevc(stream, entropy=entropy, device=cuda)
+    assert I.LAUNCHES == {"luma": 1, "chroma": 1}
+    want = HeicDecoder.decode_hevc(stream, backend="ref", device=cuda)
+    for k in ("Y", "Cb", "Cr"):
+        assert got[k].dtype == want[k].dtype == np.uint8, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_card_file_and_port_import_without_jax():
+    """This file and every module of heif_tpu_torch import with jax made
+    unimportable, and pull in none of heif_tpu's JAX modules."""
+    code = textwrap.dedent("""
+        import importlib, importlib.util, pkgutil, sys
+        sys.modules["jax"] = None
+        spec = importlib.util.spec_from_file_location("card", sys.argv[1])
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        import heif_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            heif_tpu_torch.__path__, "heif_tpu_torch.")
+            if not m.name.endswith("__main__")]
+        for name in names:
+            importlib.import_module(name)
+        banned = ("jax.", "heif_tpu.ops.batch", "heif_tpu.ops.jax_recon",
+                  "heif_tpu.ops.pallas", "heif_tpu.parallel")
+        assert not [m for m in sys.modules if m.startswith(banned)]
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code, __file__], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20  # every module, tools included
