@@ -4,16 +4,20 @@
     python3 chip_smoke.py
 
 Phases (each prints its lines; any failure raises and exits non-zero):
-  1. the card (nvidia-smi name and power limit), torch / CUDA versions,
-     whether the native entropy library loaded;
+  1. the card (nvidia-smi name and power limit), torch / CUDA versions;
+     build the native entropy library (heif_tpu_torch/native/entropy.cpp
+     -> build/) and load it;
   2. build and load the CUDA kernels (heif_tpu_torch/csrc -> build/);
   3. each intra kernel against its plain PyTorch walk on the card,
-     bit-exact, on the flagship plan (all 48 tiles of
-     tests/assets/halfmoonbay.heic) and on a synthetic 10-bit batch with
-     PCM blocks; kernel and plain times side by side;
+     bit-exact, on three inputs: the flagship plan (all 48 tiles of
+     tests/assets/halfmoonbay.heic), a synthetic 4x128x128 10-bit batch
+     with PCM blocks and strong smoothing, and a synthetic batch of tall
+     pictures cut into HEVC tiles, with more CTB rows than the kernels
+     have warps; kernel time (CUDA events, warm, many launches) beside
+     the earlier kernel's, the plain walk's time and the bound;
   4. the slice: HeicDecoder.decode(data, device="cuda") cold and warm;
      both kernels must have been launched by it, tiles 1, 22, 24, 38 and
-     46 must equal the numpy reference (heif_tpu.ops.ref_recon) bit for
+     46 must equal the numpy reference (heif_tpu_torch.ops.ref_recon) bit for
      bit; stage times and MP/s;
   5. the host envelope trace of all 48 flagship tiles (768 WPP
      substreams: full trace segments, envelope tapes, residual spans);
@@ -53,7 +57,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 The last two lines are a JSON summary of the kernels and the card's
 nvidia-smi line before a final {"ok": true, "device": {...}} line.
 Without a CUDA device it exits 2 before doing anything. Any import of
-jax fails inside this script: the port runs without it.
+jax or heif_tpu fails inside this script: the port runs without them.
 """
 
 from __future__ import annotations
@@ -72,7 +76,13 @@ ORACLE_TILES = (1, 22, 24, 38, 46)
 HEVC_TILES = (1, 22, 24)
 PREFIX = 2048  # bins (replays) / steps (generator) of the plain comparison
 KERNEL_SOURCE = "heif_tpu_torch/csrc/intra.cu"
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
+# the one-block-a-tile intra kernels that the wavefront replaced, on the
+# flagship plan, ms (PERF.md section 6; H100 80GB HBM3, 700 W)
+EARLIER_MS = {"luma": 10.203, "chroma": 2.912}
+KERNEL_REPS = 20  # timed launches of each intra kernel (phase 3)
 REPS = 3  # timed runs of each bulk path (phase 9)
+SCHEDULE_REPS = 20  # timed builds of a chunk's intra schedules (phase 9)
 BURST = 4  # images in the burst (phase 9)
 BACKEND = "nccl"  # process-group backend of phase 10
 
@@ -102,10 +112,10 @@ def cuda_ms(fn, reps: int) -> float:
 
 def parse_flagship(data: bytes):
     """SPS, PPS, tile ids and parsed slice headers of the flagship grid."""
-    from heif_tpu.container.reader import HeifReader
-    from heif_tpu.hevc import params
-    from heif_tpu.hevc import slice as sl
-    from heif_tpu.hevc.rbsp import remove_emulation_prevention
+    from heif_tpu_torch.container.reader import HeifReader
+    from heif_tpu_torch.hevc import params
+    from heif_tpu_torch.hevc import slice as sl
+    from heif_tpu_torch.hevc.rbsp import remove_emulation_prevention
 
     reader = HeifReader(data)
     heif = reader.read()
@@ -126,8 +136,8 @@ def parse_flagship(data: bytes):
 
 def load_flagship(data: bytes):
     """Parse and entropy-decode every tile of the flagship grid."""
-    from heif_tpu import native
-    from heif_tpu.cabac.syntax import TileSyntaxDecoder
+    from heif_tpu_torch import native
+    from heif_tpu_torch.cabac.syntax import TileSyntaxDecoder
 
     sps, pps, tile_ids, slices = parse_flagship(data)
     if native.available():
@@ -137,9 +147,62 @@ def load_flagship(data: bytes):
     return sps, pps, tile_ids, slices, sts
 
 
+def bound_ms(n_bytes: int) -> float:
+    """The least time the card takes to move n_bytes (HBM rate)."""
+    return n_bytes / HBM_BYTES_PER_MS
+
+
+def critical_steps(steps: np.ndarray, units: np.ndarray, ctb_log2: int) -> int:
+    """Steps on the wavefront's longest chain, over all tiles: a CTB
+    starts when its unit's previous CTB and its wait unit's CTB one column
+    right (or that unit's last) are done, and takes one time unit a step.
+    Returns the longest chain's step count (the whole worklist's length
+    bounds the one-block-a-tile walk)."""
+    longest = 0
+    for t in range(units.shape[0]):
+        finish = {}  # (unit, column) -> steps done when that CTB ends
+        last_done = {}  # unit -> finish of its latest CTB
+        for u, (k0, k1, _, _, wait) in enumerate(units[t]):
+            xs = steps[t, k0:k1, 0][steps[t, k0:k1, 2] > 0] >> ctb_log2
+            cols, w = np.unique(xs, return_counts=True)
+            t_prev = 0
+            for c, n in zip(cols.tolist(), w.tolist()):
+                start = t_prev
+                if wait >= 0:
+                    need = min(c + 1, int(units[t, wait, 3]))
+                    start = max(start, max([f for (uu, cc), f in finish.items()
+                                            if uu == wait and cc <= need],
+                                           default=0))
+                t_prev = finish[(u, c)] = start + n
+            last_done[u] = t_prev
+        longest = max([longest, *last_done.values()])
+    return longest
+
+
+def walk_bytes(steps, counts, units, n_planes: int) -> int:
+    """The bytes an intra walk must move, from its real steps (k < count,
+    size > 0): each step's six fields and the 2 * (2N + 1) source indices
+    it uses, its N x N samples of each plane read once (from the residual
+    or, for a PCM step, the PCM plane) and written once, the counts, and
+    the units that hold steps. The zero fill of the padded output planes
+    is a separate launch, not the walk's."""
+    s_len = steps.shape[1]
+    k = np.arange(s_len)
+    size = steps[..., 2].astype(np.int64)
+    real = (k[None] < np.minimum(counts, s_len)[:, None]) & (size > 0)
+    n = size[real]
+    fields = int(real.sum()) * steps.shape[2] * 4
+    sources = int((2 * (2 * n + 1)).sum())
+    samples = int((n * n).sum()) * n_planes * 4 * 2  # read + written
+    used = int((units[..., 1] > units[..., 0]).sum()) * units.shape[2] * 4
+    return fields + sources + samples + counts.size * 4 + used
+
+
 def check_kernels(label: str, bp, dev) -> dict:
     """Run both intra kernels and their plain walks on the same device
-    inputs; require bit equality. Returns per-kernel error and times."""
+    inputs; require bit equality. Returns per-kernel error, times and
+    bound (walk_bytes over the HBM rate; the walk's arithmetic is far
+    below the card's integer rate, so bytes bound it)."""
     import torch
 
     from heif_tpu_torch.ops import batch as B
@@ -148,7 +211,7 @@ def check_kernels(label: str, bp, dev) -> dict:
     d = B.plan_to_device(bp, dev)
     res = B.residual_planes(d, bp, dev)
     srcs = B.source_tables(d, bp)
-    steps, counts, pcm = d["steps"], d["counts"], d["pcm"]
+    steps, counts, pcm, sch = d["steps"], d["counts"], d["pcm"], d["schedules"]
     H, W = bp.height, bp.width
     Hc, Wc = H // 2, W // 2
     bdy, bdc = bp.bit_depth_y, bp.bit_depth_c
@@ -156,7 +219,7 @@ def check_kernels(label: str, bp, dev) -> dict:
     def luma_kernel():
         return I.intra_scan_luma(
             res[0], steps[0], srcs[0], counts[0], pcm[0], h=H, w=W,
-            strong_smoothing=bp.strong_smoothing, bd=bdy)
+            strong_smoothing=bp.strong_smoothing, bd=bdy, schedule=sch[0])
 
     def luma_plain():
         return I.luma_plain(
@@ -166,7 +229,7 @@ def check_kernels(label: str, bp, dev) -> dict:
     def chroma_kernel():
         return I.intra_scan_chroma2(
             res[1], res[2], steps[1], srcs[1], counts[1], pcm[1], pcm[2],
-            h=Hc, w=Wc, bd=bdc)
+            h=Hc, w=Wc, bd=bdc, schedule=sch[1])
 
     def chroma_plain():
         return I.chroma2_plain(
@@ -174,8 +237,8 @@ def check_kernels(label: str, bp, dev) -> dict:
             h=Hc, w=Wc, bd=bdc)
 
     out = {}
-    for name, kern, plain in (("luma", luma_kernel, luma_plain),
-                              ("chroma", chroma_kernel, chroma_plain)):
+    for name, c, kern, plain in (("luma", 0, luma_kernel, luma_plain),
+                                 ("chroma", 1, chroma_kernel, chroma_plain)):
         got = kern()
         want = plain()
         torch.cuda.synchronize()
@@ -183,14 +246,61 @@ def check_kernels(label: str, bp, dev) -> dict:
         want = want if isinstance(want, tuple) else (want,)
         err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
         diff = sum(int((a != b).sum()) for a, b in zip(got, want))
-        ms = cuda_ms(kern, 5)
+        ms = cuda_ms(kern, KERNEL_REPS)
         plain_ms = cuda_ms(plain, 1)
+        st_np, units_np = steps[c].cpu().numpy(), sch[c].units.cpu().numpy()
+        bound = bound_ms(walk_bytes(st_np, counts[c].cpu().numpy(), units_np,
+                                    len(got)))
+        chain = critical_steps(st_np, units_np, sch[c].ctb_log2)
+        longest = int(counts[c].max())
         print(f"[kernel] {label} {name}: max_abs_err={err} mismatches={diff} "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
+              f"units {tuple(sch[c].units.shape)}; kernel {ms:.3f} ms "
+              f"(mean of {KERNEL_REPS}), plain {plain_ms:.1f} ms, bound "
+              f"{bound:.4f} ms (bytes); longest chain {chain} steps of a "
+              f"longest worklist of {longest}: {ms * 1e3 / chain:.3f} us a "
+              f"chain step")
         if diff:
             raise SystemExit(f"{label} {name} kernel disagrees with its plain walk")
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "chain_steps": chain}
     return out
+
+
+def phase3_kernels(sps, pps, slices, sts, dev, card):
+    """Phase 3: both intra kernels against their plain walks on the
+    flagship plan, the synthetic 10-bit PCM + strong-smoothing batch, and
+    tall tiled pictures (more CTB rows than warps; HEVC tile columns and
+    rows, so units of different tiles run side by side). Returns the
+    three check_kernels results."""
+    import dataclasses
+
+    from heif_tpu_torch.ops import batch as B
+    from heif_tpu_torch.utils.synthetic import synthetic_batch
+
+    bp = B.pack_batch(sts, sps, pps, slices)
+    flag = check_kernels(f"flagship {bp.n}x{bp.height}x{bp.width}", bp, dev)
+    for name in ("luma", "chroma"):
+        print(f"[kernel] flagship {name}: wavefront {flag[name]['ms']:.3f} ms "
+              f"against {EARLIER_MS[name]:.3f} ms for the one-block-a-tile "
+              f"kernel (PERF.md), bound {flag[name]['bound_ms']:.4f} ms; "
+              f"{card}")
+    syn = synthetic_batch(n=4, size=128, bd=10, pcm=True, seed=7)
+    sbp = B.pack_batch(*syn)
+    synth = check_kernels("synthetic 4x128x128 10-bit+PCM", sbp, dev)
+    # the whole synthetic slice on the card equals the CPU path
+    got = B.reconstruct_batch(sbp, dev)
+    want = B.reconstruct_batch(sbp, "cpu")
+    for c in range(3):
+        if not np.array_equal(got[c], want[c]):
+            raise SystemExit(f"synthetic batch plane {c}: cuda != cpu")
+    print("[kernel] synthetic 10-bit+PCM batch: cuda decode == cpu decode")
+    tbp = B.pack_batch(*synthetic_batch(n=3, size=256, height=1024, bd=10,
+                                        pcm=True, seed=11))
+    tbp = dataclasses.replace(tbp, tile_col_bd=(128,), tile_row_bd=(512,))
+    tall = check_kernels(
+        f"tall 3x{tbp.height}x{tbp.width} in 2x2 HEVC tiles "
+        f"({tbp.height >> tbp.ctb_log2} luma CTB rows)", tbp, dev)
+    return flag, synth, tall
 
 
 def tile_planes(out: dict, i: int, sps) -> list:
@@ -209,7 +319,7 @@ def tile_planes(out: dict, i: int, sps) -> list:
 
 def oracle_check(out: dict, sps, pps, tile_ids, slices, sts):
     """Tiles ORACLE_TILES of the decoded image vs ref_recon, bit for bit."""
-    from heif_tpu.ops.ref_recon import reconstruct_tile
+    from heif_tpu_torch.ops.ref_recon import reconstruct_tile
 
     for tid in ORACLE_TILES:
         i = tile_ids.index(tid)
@@ -285,7 +395,7 @@ def check_golden(rentries, gentries, tile_of, goldens, dev, card) -> dict:
 
 
 def _prefix(seg, k: int):
-    from heif_tpu.cabac.trace import TraceSegment
+    from heif_tpu_torch.cabac.trace import TraceSegment
 
     t = TraceSegment(byte_start=seg.byte_start, byte_end=seg.byte_end)
     t.p0, t.mps0 = seg.p0, seg.mps0
@@ -294,10 +404,12 @@ def _prefix(seg, k: int):
     return t
 
 
-def _kernel_vs_plain(name, kern, plain, card) -> dict:
+def _kernel_vs_plain(name, kern, plain, n_bytes, card) -> dict:
     """Run a kernel and its plain version on the same device inputs;
     require equal planes. Times: kernel by CUDA events over 5 runs, plain
-    its one comparison run."""
+    its one comparison run. Bound: n_bytes(outputs) at the HBM rate (a
+    CABAC step is a few integer operations a lane, far below the card's
+    integer rate)."""
     import torch
 
     got = kern()
@@ -317,16 +429,31 @@ def _kernel_vs_plain(name, kern, plain, card) -> dict:
                 raise SystemExit(f"{name}: shapes {a.shape} != {b.shape}")
             err = max(err, int((a.long() - b.long()).abs().max()))
     ms = cuda_ms(kern, 5)
+    bound = bound_ms(n_bytes(got))
     print(f"[plain] {name}: max_abs_err={err} kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.1f} ms on {card}")
+          f"{plain_ms:.1f} ms, bound {bound:.4f} ms (bytes) on {card}")
     if err:
         raise SystemExit(f"{name} kernel disagrees with its plain version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound}
+
+
+def stream_bytes(seg, n_bins: int) -> int:
+    """Bytes of a substream that its first n_bins bins consume (the host
+    decoder's bit position after the last of them)."""
+    if n_bins <= 0:
+        return 0
+    return -(-(int(seg.positions[n_bins - 1]) - 8 * seg.byte_start) // 8)
 
 
 def check_plain(rentries, gentries, dev, card) -> dict:
     """Phase 7: each CABAC kernel vs its plain version on the 768 streams
-    cut to PREFIX bins / steps."""
+    cut to PREFIX bins / steps. The bounds count the real work only: per
+    stream its real steps (a replay: kind and slot read, bin written; the
+    generator: event and debug word written), its context state read and
+    written once, and the stream bytes and envelope-tape rows its steps
+    consume; the padding of lanes, steps and words is not counted."""
+    from heif_tpu_torch.cabac.trace import KIND_PAD
     from heif_tpu_torch.ops import cabac as C
     from heif_tpu_torch.ops import cabac_gen as G
 
@@ -335,20 +462,47 @@ def check_plain(rentries, gentries, dev, card) -> dict:
                              ("words", "c0", "kinds", "slots"),
                              (0, 0, C.KIND_PAD, 0))
     args = [C.as_tensor(a, dev) for a in arrays]
+
+    def replay_bytes(state_words, blk=None):
+        total = 0
+        for _, s in cut:
+            k = s.n_bins
+            total += 12 * k + 2 * 4 * state_words + stream_bytes(s, k)
+            if blk:  # the windowed replay's bit offset of each block
+                total += 4 * -(-k // blk)
+        return total
+
     out = {"replay": _kernel_vs_plain(
         f"replay {args[2].shape[0]}x{args[2].shape[1]} steps x 128 lanes",
-        lambda: C.replay(*args), lambda: C.replay_plain(*args), card)}
+        lambda: C.replay(*args), lambda: C.replay_plain(*args),
+        lambda got: replay_bytes(C.N_CTX), card)}
     wargs, _ = C.windowed_image_inputs(cut, device=dev)
+    wblk = wargs[3].shape[1] // wargs[0].shape[1]
     out["windowed"] = _kernel_vs_plain(
         f"windowed {wargs[3].shape[0]}x{wargs[3].shape[1]} steps x 128 lanes",
         lambda: C.replay_windowed(*wargs),
-        lambda: C.replay_windowed_plain(*wargs), card)
+        lambda: C.replay_windowed_plain(*wargs),
+        lambda got: replay_bytes(C.N_CTXP, wblk), card)
     capped = [(rb, s, t, min(ns, PREFIX), sp) for rb, s, t, ns, sp in gentries]
-    gargs, S, _ = G.image_inputs(capped, device=dev)
+    gargs, S, gbatches = G.image_inputs(capped, device=dev)
+
+    def gen_bytes(got):
+        dbg = got[1].cpu().numpy()
+        total = 0
+        for bi, (_, idx) in enumerate(gbatches):
+            for lane, ei in enumerate(idx):
+                ns = capped[ei][3]
+                d = dbg[bi, :ns, lane]
+                asked = (d & 7) != KIND_PAD  # a bin was decoded
+                tape = int((asked & ((d >> 16) == G.P_TAPE)).sum()) + 1
+                total += (8 * ns + 2 * 4 * C.N_CTX + 4 * tape
+                          + stream_bytes(capped[ei][1], int(asked.sum())))
+        return total
+
     out["gen"] = _kernel_vs_plain(
         f"gen {gargs[0].shape[0]}x{S} steps x 128 lanes (events, dbg, state)",
         lambda: G.gen(*gargs, S, debug=True),
-        lambda: G.gen_plain(*gargs, S, debug=True), card)
+        lambda: G.gen_plain(*gargs, S, debug=True), gen_bytes, card)
     return out
 
 
@@ -359,7 +513,7 @@ def check_hevc_slice(data, sps, pps, tile_ids, slices, sts, dev, card) -> dict:
 
     import torch
 
-    from heif_tpu.ops.ref_recon import reconstruct_tile
+    from heif_tpu_torch.ops.ref_recon import reconstruct_tile
     from heif_tpu_torch import HeicDecoder
     from heif_tpu_torch.ops import cabac_gen as G
     from heif_tpu_torch.ops import intra as I
@@ -450,14 +604,15 @@ def intra_kernel_ms(bp, dev) -> float:
     d = B.plan_to_device(bp, dev)
     res = B.residual_planes(d, bp, dev)
     srcs = B.source_tables(d, bp)
-    steps, counts, pcm = d["steps"], d["counts"], d["pcm"]
+    steps, counts, pcm, sch = d["steps"], d["counts"], d["pcm"], d["schedules"]
     H, W = bp.height, bp.width
     luma = cuda_ms(lambda: I.intra_scan_luma(
         res[0], steps[0], srcs[0], counts[0], pcm[0], h=H, w=W,
-        strong_smoothing=bp.strong_smoothing, bd=bp.bit_depth_y), 5)
+        strong_smoothing=bp.strong_smoothing, bd=bp.bit_depth_y,
+        schedule=sch[0]), 5)
     chroma = cuda_ms(lambda: I.intra_scan_chroma2(
         res[1], res[2], steps[1], srcs[1], counts[1], pcm[1], pcm[2],
-        h=H // 2, w=W // 2, bd=bp.bit_depth_c), 5)
+        h=H // 2, w=W // 2, bd=bp.bit_depth_c, schedule=sch[1]), 5)
     return luma + chroma
 
 
@@ -468,7 +623,7 @@ def check_bulk(data, out4, sts, dev, card) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from heif_tpu.utils.profiling import DecodeStats
+    from heif_tpu_torch.utils.profiling import DecodeStats
     from heif_tpu_torch import HeicDecoder
     from heif_tpu_torch.ops import batch as B
     from heif_tpu_torch.ops import intra as I
@@ -565,6 +720,29 @@ def check_bulk(data, out4, sts, dev, card) -> dict:
     out["intra_ms"] = {f"chunk{chunk}": split, f"chunk{n}": whole}
     print(f"[bulk] intra kernels (luma + chroma): {n // chunk} chunks of "
           f"{chunk} {split:.3f} ms, one of {n} {whole:.3f} ms on {card}")
+
+    # the host cost of the intra schedules a chunk: plan_to_device builds
+    # them (unit_tables, tensor ops on the card) on the dispatch path
+    bp = B.pack_batch(sts[:chunk], sps, pps, slices[:chunk])
+    d = B.plan_to_device(bp, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SCHEDULE_REPS):
+        B.unit_tables(d, bp)
+    host_ms = (time.perf_counter() - t0) * 1e3 / SCHEDULE_REPS
+    device_ms = cuda_ms(lambda: B.unit_tables(d, bp), SCHEDULE_REPS)
+    t0 = time.perf_counter()
+    for _ in range(SCHEDULE_REPS):
+        B.plan_to_device(bp, dev)
+    plan_ms = (time.perf_counter() - t0) * 1e3 / SCHEDULE_REPS
+    torch.cuda.synchronize()
+    dispatch = out[f"stages_ms_chunk{chunk}"].get("dispatch", 0.0) / (n // chunk)
+    out["schedule_ms"] = {"host": host_ms, "device": device_ms,
+                          "plan_to_device": plan_ms, "dispatch": dispatch}
+    print(f"[bulk] intra schedules (unit_tables) of a chunk of {chunk}: host "
+          f"{host_ms:.3f} ms (mean of {SCHEDULE_REPS}, no synchronize), device "
+          f"{device_ms:.3f} ms; plan_to_device with them {plan_ms:.3f} ms; "
+          f"dispatch {dispatch:.1f} ms a chunk in the stage split on {card}")
 
     # decode to device: per-chunk CUDA planes, only real tiles
     dev_walls = []
@@ -827,17 +1005,17 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    # the port runs without JAX: make any import of it fail
+    # the port runs without JAX and without the JAX package: make any
+    # import of either fail
     sys.modules["jax"] = None
+    sys.modules["heif_tpu"] = None
 
-    from heif_tpu import native
-    from heif_tpu.utils.profiling import DecodeStats
+    from heif_tpu_torch import native
+    from heif_tpu_torch.utils.profiling import DecodeStats
     from heif_tpu_torch import HeicDecoder
     from heif_tpu_torch.ops import _build
-    from heif_tpu_torch.ops import batch as B
     from heif_tpu_torch.ops import intra as I
     from heif_tpu_torch.tools import bench_device_entropy as BDE
-    from heif_tpu_torch.utils.synthetic import synthetic_batch
 
     dev = torch.device("cuda")
     card = card_line()
@@ -846,7 +1024,12 @@ def main() -> int:
     print(f"[card] {card}")
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {kind}")
-    print(f"[env] native entropy library loaded: {native.available()}")
+    t0 = time.perf_counter()
+    entropy_lib = native.build()
+    native.load()  # raises if it does not load or has another ABI
+    print(f"[build] native entropy library {os.path.relpath(entropy_lib, ROOT)}"
+          f" built from heif_tpu_torch/native/entropy.cpp and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # phase 2
     t0 = time.perf_counter()
@@ -858,18 +1041,7 @@ def main() -> int:
     # phase 3
     data = open(ASSET, "rb").read()
     sps, pps, tile_ids, slices, sts = load_flagship(data)
-    bp = B.pack_batch(sts, sps, pps, slices)
-    flag = check_kernels(f"flagship {bp.n}x{bp.height}x{bp.width}", bp, dev)
-    syn = synthetic_batch(n=4, size=128, bd=10, pcm=True, seed=7)
-    sbp = B.pack_batch(*syn)
-    synth = check_kernels("synthetic 4x128x128 10-bit+PCM", sbp, dev)
-    # the whole synthetic slice on the card equals the CPU path
-    got = B.reconstruct_batch(sbp, dev)
-    want = B.reconstruct_batch(sbp, "cpu")
-    for c in range(3):
-        if not np.array_equal(got[c], want[c]):
-            raise SystemExit(f"synthetic batch plane {c}: cuda != cpu")
-    print("[kernel] synthetic 10-bit+PCM batch: cuda decode == cpu decode")
+    flag, synth, tall = phase3_kernels(sps, pps, slices, sts, dev, card)
 
     # phase 4: the main path, through the entry point a user calls
     I.reset_launches()
@@ -957,9 +1129,13 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(flag[name]["max_abs_err"],
-                               synth[name]["max_abs_err"]),
+                               synth[name]["max_abs_err"],
+                               tall[name]["max_abs_err"]),
             "ms": flag[name]["ms"],
             "plain_ms": flag[name]["plain_ms"],
+            "bound_ms": flag[name]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
         })
     for name, source, replaces, count in (
         ("cabac_replay", "heif_tpu_torch/csrc/cabac.cu",
@@ -977,6 +1153,8 @@ def main() -> int:
             "replaces": replaces, "launches": count,
             "max_abs_err": plain[key]["max_abs_err"],
             "ms": plain[key]["ms"], "plain_ms": plain[key]["plain_ms"],
+            "bound_ms": plain[key]["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -15,7 +15,7 @@ is a raw HEVC stream and goes to HeicDecoder.decode_hevc; anything else
 is a HEIF container and goes to HeicDecoder.decode. Options that apply
 to only one of the two are refused on the other. --backend (decode,
 verify, bench) picks the reconstruction: torch (the port, on --device)
-or ref (heif_tpu's host numpy reference). decode --trace writes a
+or ref (the host numpy reference, ops.ref_recon). decode --trace writes a
 torch.profiler trace of the decode into
 heif_tpu_torch.utils.profiling.DEFAULT_LOGDIR and prints its path.
 """
@@ -49,9 +49,9 @@ def _write_ppm(path: str, rgb: np.ndarray) -> None:
 
 def probe_annexb(data: bytes) -> dict:
     """Picture metadata of a raw Annex-B stream, from its SPS and PPS."""
-    from heif_tpu.hevc import params
-    from heif_tpu.hevc import slice as sl
-    from heif_tpu.hevc.rbsp import remove_emulation_prevention
+    from heif_tpu_torch.hevc import params
+    from heif_tpu_torch.hevc import slice as sl
+    from heif_tpu_torch.hevc.rbsp import remove_emulation_prevention
 
     sps = pps = None
     for nal in sl.split_annexb_nals(data):
@@ -119,7 +119,7 @@ def _decode(args, data: bytes, **kwargs) -> dict:
 
 
 def cmd_decode(args) -> int:
-    from heif_tpu.utils.profiling import DecodeStats
+    from heif_tpu_torch.utils.profiling import DecodeStats
     from heif_tpu_torch import HeicDecoder
     from heif_tpu_torch.utils import profiling
 
@@ -178,7 +178,7 @@ def cmd_decode(args) -> int:
 
 def cmd_verify(args) -> int:
     """Bit-exact plane comparison against the libde265 oracle."""
-    from heif_tpu.utils import oracle
+    from heif_tpu_torch.utils import oracle
 
     data = _read(args.file)
     if is_annexb(data):
@@ -239,7 +239,7 @@ def main(argv=None) -> int:
                              "or cpu (the plain PyTorch path)")
         sp.add_argument("--backend", default="torch", choices=["torch", "ref"],
                         help="reconstruction: torch (default; the port on "
-                             "--device) or ref (heif_tpu's host numpy "
+                             "--device) or ref (the host numpy "
                              "reference)")
 
     pp = sub.add_parser("probe", help="container metadata only")

@@ -1,34 +1,139 @@
 """HeicDecoder — container -> host entropy -> batched reconstruction on
 one PyTorch device.
 
-Port of heif_tpu/models/decoder.py (HeicDecoder.decode, decode_hevc and
-_entropy_device_gen). The container, header and entropy layers and the
-output assembly (probe, _stitch, _select_vcl_nal, to_rgb) are heif_tpu's
-own, imported unchanged; reconstruction runs in heif_tpu_torch.ops.batch,
-all tiles in one batch (or split over a mesh of devices by
-parallel.pipeline), or with backend="ref" in heif_tpu's host reference
-(ops.ref_recon); device-side entropy runs in ops.cabac_gen.
+Port of heif_tpu/models/decoder.py (HeicDecoder.probe, decode,
+decode_hevc, _entropy_device_gen, _stitch and to_rgb; ImageInfo and
+_select_vcl_nal are copies of heif_tpu's). The container, header and
+entropy layers are the port's own copies (container/, hevc/, cabac/,
+native/); reconstruction runs in heif_tpu_torch.ops.batch, all tiles in
+one batch (or split over a mesh of devices by parallel.pipeline), or
+with backend="ref" in the host reference (ops.ref_recon); device-side
+entropy runs in ops.cabac_gen.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 
-from heif_tpu.container import grammar as g
-from heif_tpu.container.reader import HeifReader, parse_grid_config
-from heif_tpu.models.decoder import HeicDecoder as _Ref
-from heif_tpu.models.decoder import _select_vcl_nal
+from heif_tpu_torch.container import grammar as g
+from heif_tpu_torch.container.reader import HeifReader, parse_grid_config
+
+
+@dataclass
+class ImageInfo:
+    """Resolved metadata for the primary picture (config 0 deliverable)."""
+
+    ispe_width: int
+    ispe_height: int
+    display_width: int  # after irot
+    display_height: int
+    rotation: int  # irot angle, multiples of 90 deg CCW
+    luma_bit_depth: int
+    chroma_bit_depth: int
+    chroma_format_idc: int
+    grid: Optional[g.GridConfig]
+    tile_ids: list[int]
+    primary_item_id: int
+    thumbnail_count: int
+    icc: Optional[object] = None  # container.icc.IccProfile when present
+
+
+def _select_vcl_nal(nals: list[bytes]) -> bytes:
+    """Pick THE slice NAL of an hvc1 item.
+
+    Items may legally carry non-VCL NALs (SEI, parameter sets) alongside
+    the slice; more than one VCL NAL would mean a multi-slice picture,
+    which this decoder (like the reference, src/heic/decoder.rs:152-157)
+    rejects loudly rather than silently decoding only the first.
+    """
+    vcl = [n for n in nals if ((n[0] >> 1) & 0x3F) <= 31]
+    if not vcl:
+        raise ValueError("item contains no VCL (slice) NAL unit")
+    if len(vcl) > 1:
+        raise ValueError(
+            f"item contains {len(vcl)} VCL NAL units; multi-slice items "
+            "are not supported"
+        )
+    return vcl[0]
 
 
 class HeicDecoder:
     """End-to-end HEIC decode with reconstruction on a torch device."""
 
-    probe = staticmethod(_Ref.probe)
-    _stitch = staticmethod(_Ref._stitch)
-    to_rgb = staticmethod(_Ref.to_rgb)
+    @staticmethod
+    def probe(data: bytes) -> ImageInfo:
+        """Parse container metadata only (no entropy/pixel work).
+
+        Mirrors what the reference can do today plus grid-config resolution
+        (which requires idat support, reference's todo! at
+        src/heif/reader.rs:42).
+        """
+        reader = HeifReader(data)
+        heif = reader.read()
+        primary = heif.primary_item_id()
+        info = heif.item_info_by_item_id(primary)
+        if info is None:
+            raise ValueError(f"primary item {primary} missing from iinf")
+
+        props = heif.meta.item_properties
+        ispe = props.property_of_type(primary, g.ImageSpatialExtentsProperty)
+        if ispe is None:
+            raise ValueError("primary item has no ispe property")
+        irot = props.property_of_type(primary, g.ImageRotationProperty)
+        angle = irot.angle if irot else 0
+        if angle in (1, 3):
+            disp_w, disp_h = ispe.height, ispe.width
+        else:
+            disp_w, disp_h = ispe.width, ispe.height
+
+        grid = None
+        tile_ids: list[int] = []
+        if info.item_type == g.ItemType.GRID:
+            grid = parse_grid_config(reader.get_item_data(primary))
+            tile_ids = heif.item_ids_referencing(primary, "dimg")
+
+        hvcc = heif.hevc_configuration_record(
+            tile_ids[0] if tile_ids else primary
+        )
+        if hvcc is None:
+            raise ValueError("no hvcC record found")
+
+        thumbs = heif.items_referring_to(primary, "thmb")
+
+        # ICC: parse header + tag table from a prof/rICC colr payload
+        # (completes the reference's dead color module,
+        # src/color/reader.rs:11-135)
+        icc = None
+        colr = props.property_of_type(
+            tile_ids[0] if tile_ids else primary, g.ColorInformationProperty
+        ) or props.property_of_type(primary, g.ColorInformationProperty)
+        if colr is not None and colr.icc_profile:
+            from heif_tpu_torch.container.icc import parse_icc_header
+
+            try:
+                icc = parse_icc_header(colr.icc_profile)
+            except ValueError:
+                icc = None
+
+        return ImageInfo(
+            ispe_width=ispe.width,
+            ispe_height=ispe.height,
+            display_width=disp_w,
+            display_height=disp_h,
+            rotation=angle,
+            luma_bit_depth=hvcc.bit_depth_luma_minus8 + 8,
+            chroma_bit_depth=hvcc.bit_depth_chroma_minus8 + 8,
+            chroma_format_idc=hvcc.chroma_format_idc,
+            grid=grid,
+            tile_ids=tile_ids,
+            primary_item_id=primary,
+            thumbnail_count=len(thumbs),
+            icc=icc,
+        )
 
     @staticmethod
     def decode(
@@ -46,14 +151,14 @@ class HeicDecoder:
         Returns {"Y", "Cb", "Cr", "info"} like heif_tpu's decode: uint8
         numpy planes (uint16 above 8 bits; Cb/Cr None for monochrome).
         backend: "torch" (the default: the port's batched reconstruction
-          on `device`) or "ref" (heif_tpu's host numpy reference,
+          on `device`) or "ref" (the host numpy reference,
           ops.ref_recon, tile by tile; it takes no mesh_devices).
         device: "cuda" (default; raises without a usable CUDA device) or
           "cpu" (the plain PyTorch path). Nothing falls back silently.
         isolate_tile_errors: a corrupt tile yields a mid-gray tile and an
           error record in stats.tile_errors / stats.errors instead of
           aborting the image.
-        stats: optional heif_tpu.utils.profiling.DecodeStats; receives
+        stats: optional heif_tpu_torch.utils.profiling.DecodeStats; receives
           stage wall times (entropy, pack, h2d, residual, intra, deblock,
           sao, d2h, stitch; with a mesh: entropy, sharded, stitch; with
           backend "ref": entropy, recon, stitch) and
@@ -64,11 +169,11 @@ class HeicDecoder:
           devices (RuntimeError if fewer exist), or N CPU shards when
           device is "cpu". Tiles-enabled pictures decode on the mesh too.
         """
-        from heif_tpu import native
-        from heif_tpu.cabac.syntax import TileSyntaxDecoder
-        from heif_tpu.hevc import params
-        from heif_tpu.hevc import slice as sl
-        from heif_tpu.hevc.rbsp import remove_emulation_prevention
+        from heif_tpu_torch import native
+        from heif_tpu_torch.cabac.syntax import TileSyntaxDecoder
+        from heif_tpu_torch.hevc import params
+        from heif_tpu_torch.hevc import slice as sl
+        from heif_tpu_torch.hevc.rbsp import remove_emulation_prevention
         from heif_tpu_torch.device import resolve_device
         from heif_tpu_torch.ops.batch import reconstruct_tiles, schedule_hints
         from heif_tpu_torch.parallel.pipeline import (
@@ -212,7 +317,7 @@ class HeicDecoder:
             raise ValueError("no decodable tiles")
 
         if backend == "ref":
-            from heif_tpu.ops.ref_recon import reconstruct_tile
+            from heif_tpu_torch.ops.ref_recon import reconstruct_tile
 
             t0 = time.perf_counter()
             tiles_good = [reconstruct_tile(st, sps, pps, ps.header)
@@ -310,7 +415,7 @@ class HeicDecoder:
         decode_hevc.
 
         backend: "torch" (the default: the port's batched reconstruction,
-          ops.batch.reconstruct_tiles, on `device`) or "ref" (heif_tpu's
+          ops.batch.reconstruct_tiles, on `device`) or "ref" (the
           host numpy reference, ops.ref_recon).
         entropy: "auto" (native C++ when available, the Python twin
           otherwise) or "device-gen" (the residual request generator on
@@ -320,11 +425,11 @@ class HeicDecoder:
         Tiles with loop_filter_across_tiles_enabled_flag=0 and SAO
         (tile-clamped SAO) raise NotImplementedError at once.
         """
-        from heif_tpu import native
-        from heif_tpu.cabac.syntax import TileSyntaxDecoder
-        from heif_tpu.hevc import params
-        from heif_tpu.hevc import slice as sl
-        from heif_tpu.hevc.rbsp import remove_emulation_prevention
+        from heif_tpu_torch import native
+        from heif_tpu_torch.cabac.syntax import TileSyntaxDecoder
+        from heif_tpu_torch.hevc import params
+        from heif_tpu_torch.hevc import slice as sl
+        from heif_tpu_torch.hevc.rbsp import remove_emulation_prevention
         from heif_tpu_torch.device import resolve_device
 
         if backend not in ("torch", "ref"):
@@ -361,7 +466,7 @@ class HeicDecoder:
             st = TileSyntaxDecoder(sps, pps, ps).decode()
 
         if backend == "ref":
-            from heif_tpu.ops.ref_recon import reconstruct_tile
+            from heif_tpu_torch.ops.ref_recon import reconstruct_tile
 
             y, cb, cr = reconstruct_tile(st, sps, pps, ps.header)
         else:
@@ -371,3 +476,74 @@ class HeicDecoder:
         if sps.chroma_format_idc == 0:
             cb = cr = None  # monochrome: no chroma planes
         return {"Y": y, "Cb": cb, "Cr": cr, "sps": sps, "pps": pps}
+
+    @staticmethod
+    def _stitch(tiles, grid, sps, apply_rotation: bool, angle: int,
+                crop_off: tuple = (0, 0)) -> dict:
+        """Assemble decoded tiles into the output canvas, crop to the grid
+        output size, and apply irot (CCW multiples of 90 degrees).
+
+        Canvas dtype follows the decoded tile planes (uint8, or uint16 for
+        >8-bit streams — allocating uint8 unconditionally silently
+        truncated Main-10 output). Monochrome (4:0:0) streams stitch the
+        luma canvas only; Cb/Cr are None.
+        """
+        tw = sps.pic_width_in_luma_samples
+        th = sps.pic_height_in_luma_samples
+        mono = sps.chroma_format_idc == 0
+        dt = tiles[0][0].dtype
+        canvas_w, canvas_h = grid.columns * tw, grid.rows * th
+        y = np.zeros((canvas_h, canvas_w), dtype=dt)
+        if mono:
+            cb = cr = None
+        else:
+            cb = np.zeros((canvas_h >> 1, canvas_w >> 1), dtype=dt)
+            cr = np.zeros((canvas_h >> 1, canvas_w >> 1), dtype=dt)
+        for i, t in enumerate(tiles):
+            r, c = divmod(i, grid.columns)
+            y[r * th : (r + 1) * th, c * tw : (c + 1) * tw] = t[0]
+            if not mono:
+                cb[r * (th >> 1) : (r + 1) * (th >> 1), c * (tw >> 1) : (c + 1) * (tw >> 1)] = t[1]
+                cr[r * (th >> 1) : (r + 1) * (th >> 1), c * (tw >> 1) : (c + 1) * (tw >> 1)] = t[2]
+        ox, oy = crop_off
+        y = y[oy : oy + grid.output_height, ox : ox + grid.output_width]
+        if not mono:
+            cb = cb[oy >> 1 : (oy >> 1) + (grid.output_height >> 1),
+                    ox >> 1 : (ox >> 1) + (grid.output_width >> 1)]
+            cr = cr[oy >> 1 : (oy >> 1) + (grid.output_height >> 1),
+                    ox >> 1 : (ox >> 1) + (grid.output_width >> 1)]
+        if apply_rotation and angle:
+            y = np.rot90(y, k=angle).copy()
+            if not mono:
+                cb = np.rot90(cb, k=angle).copy()
+                cr = np.rot90(cr, k=angle).copy()
+        return {"Y": y, "Cb": cb, "Cr": cr}
+
+    @staticmethod
+    def to_rgb(planes: dict) -> "np.ndarray":
+        """YCbCr (BT.601 full-range) -> uint8 RGB HxWx3 for preview/export.
+
+        >8-bit planes are scaled to 8-bit for export; monochrome images
+        (Cb/Cr None) replicate luma across the three channels.
+        """
+        y = planes["Y"]
+        bd_shift = 0
+        if y.dtype == np.uint16:
+            # infer the source bit depth from the info when present
+            info = planes.get("info")
+            bd = getattr(info, "luma_bit_depth", 10) if info else 10
+            bd_shift = bd - 8
+        y = (y.astype(np.float32) / (1 << bd_shift)) if bd_shift else y.astype(
+            np.float32
+        )
+        if planes.get("Cb") is None:
+            g8 = np.clip(y, 0, 255).astype(np.uint8)
+            return np.stack([g8, g8, g8], axis=-1)
+        cb = planes["Cb"].astype(np.float32) / (1 << bd_shift) - 128.0
+        cr = planes["Cr"].astype(np.float32) / (1 << bd_shift) - 128.0
+        cb = np.repeat(np.repeat(cb, 2, 0), 2, 1)[: y.shape[0], : y.shape[1]]
+        cr = np.repeat(np.repeat(cr, 2, 0), 2, 1)[: y.shape[0], : y.shape[1]]
+        r = y + 1.402 * cr
+        gch = y - 0.344136 * cb - 0.714136 * cr
+        b = y + 1.772 * cb
+        return np.clip(np.stack([r, gch, b], axis=-1), 0, 255).astype(np.uint8)

@@ -40,12 +40,12 @@ build_seconds = 0.0  # wall time of the build that produced the loaded library
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # plane, res, pcm, steps, src, counts, n, S, HP, WP, HR, WR, bd,
-    # strong, stream
-    "heif_intra_luma": [_vp] * 6 + [_i] * 8 + [_vp],
-    # cb, cr, res_cb, res_cr, pcm_cb, pcm_cr, steps, src, counts, n, S,
-    # HP, WP, HR, WR, bd, stream
-    "heif_intra_chroma2": [_vp] * 9 + [_i] * 7 + [_vp],
+    # plane, res, pcm, steps, src, counts, units, n, S, U, HP, WP, HR, WR,
+    # bd, strong, ctb_log2, stream
+    "heif_intra_luma": [_vp] * 7 + [_i] * 10 + [_vp],
+    # cb, cr, res_cb, res_cr, pcm_cb, pcm_cr, steps, src, counts, units, n,
+    # S, U, HP, WP, HR, WR, bd, ctb_log2, stream
+    "heif_intra_chroma2": [_vp] * 10 + [_i] * 9 + [_vp],
     # bins, state, words, c0, kinds, slots, tbl, B, W, S, stream
     "heif_cabac_replay": [_vp] * 7 + [_i] * 3 + [_vp],
     # bins, state, windows, biw0, c0p, kinds, slots, tbl, B, nb, w_blk,

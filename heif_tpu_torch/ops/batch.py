@@ -3,9 +3,9 @@
 Host half (numpy, no torch): a copy of the numpy packer of
 heif_tpu/ops/batch.py — CLASSES, BatchPlan, _scaling_for_sps, pack_batch
 (the per-TU-table path and the native pre-pack path, _assemble_packed),
-_finish_plan and schedule_hints — unchanged in behaviour. It is copied,
-not imported, because heif_tpu.ops.batch imports jax at module level and
-the port must run where jax is absent. tests/test_torch_decode.py and
+_finish_plan and schedule_hints — unchanged in behaviour, with
+_luma_filter_flags_vec from heif_tpu/ops/pack.py. The port imports
+nothing of heif_tpu. tests/test_torch_decode.py and
 tests/test_torch_overlap.py hold the copy against the original.
 
 Device half (torch): `core` is the port of heif_tpu.ops.batch._core.
@@ -94,7 +94,7 @@ def _scaling_for_sps(sps):
     of the SPS scaling lists)."""
     cache = getattr(sps, "_heif_tpu_scaling_cache", None)
     if cache is None:
-        from heif_tpu.ops.tables import scaling_factor_matrix
+        from heif_tpu_torch.ops.ref_tables import scaling_factor_matrix
 
         lists = sps.effective_scaling_lists()
         cache = {
@@ -109,6 +109,19 @@ def _scaling_for_sps(sps):
     return cache
 
 
+# filter threshold indexed by log2 size (2..5); size 4 never filters
+_FILTER_THRES_BY_LOG2 = np.array([99, 99, 99, 7, 1, 0], dtype=np.int32)
+
+
+def _luma_filter_flags_vec(size: np.ndarray, mode: np.ndarray) -> np.ndarray:
+    """Luma reference-smoothing eligibility (§8.4.4.2.3) over TU arrays
+    (copy of heif_tpu/ops/pack.py's)."""
+    log2 = np.log2(np.maximum(size, 1)).astype(np.int32)
+    min_dist = np.minimum(np.abs(mode - 26), np.abs(mode - 10))
+    out = (mode == 0) | (min_dist > _FILTER_THRES_BY_LOG2[log2])
+    return out & (mode != 1) & (size != 4)
+
+
 def pack_batch(
     syntaxes, sps, pps, slices, n_steps=None, class_caps=None
 ) -> BatchPlan:
@@ -120,9 +133,8 @@ def pack_batch(
     class_caps maps (comp, size) -> padded block count (padding rows are
     all-zero with org -1).
     """
-    from heif_tpu.cabac import types as T
-    from heif_tpu.ops.pack import _luma_filter_flags_vec
-    from heif_tpu.utils.hostmem import tune_allocator
+    from heif_tpu_torch.cabac import types as T
+    from heif_tpu_torch.utils.hostmem import tune_allocator
 
     tune_allocator()
     n = len(syntaxes)
@@ -273,7 +285,7 @@ def pack_batch(
 
 def _assemble_packed(syntaxes, n, H, W, n_steps, class_caps):
     """The plan tensors from native per-tile packs (st.packed, made by
-    heif_tpu.native.pack_tile_native inside the entropy workers): segment
+    heif_tpu_torch.native.pack_tile_native inside the entropy workers): segment
     copies only, no per-TU work on the calling thread. Returns (xs,
     counts, (tc_coeffs, tc_qp, tc_dst, tc_skip, tc_bypass, tc_org))."""
     Hc, Wc = H // 2, W // 2
@@ -488,7 +500,10 @@ def _stage(stats, name: str, device: torch.device):
 def plan_to_device(bp: BatchPlan, device: torch.device) -> dict:
     """Ship the BatchPlan arrays to `device`. On CUDA each array goes
     through pinned host memory as a non_blocking copy on the current
-    stream (the core's kernels queue behind it on the same stream)."""
+    stream (the core's kernels queue behind it on the same stream). On
+    CUDA the intra kernels' schedules ("schedules", unit_tables) are
+    built there from the shipped worklists; the plain walks on the CPU
+    need none ([None, None])."""
     def put(a):
         t = torch.from_numpy(np.ascontiguousarray(a))
         if device.type == "cuda":
@@ -496,7 +511,7 @@ def plan_to_device(bp: BatchPlan, device: torch.device) -> dict:
         return t
 
     used = {(size, comp) for comp, size in bp.tc_coeffs}
-    return {
+    d = {
         "classes": [
             (*k, put(bp.tc_coeffs[k]), put(bp.tc_qp[k]), put(bp.tc_dst[k]),
              put(bp.tc_skip[k]), put(bp.tc_bypass[k]), put(bp.tc_org[k]))
@@ -512,6 +527,9 @@ def plan_to_device(bp: BatchPlan, device: torch.device) -> dict:
         "horiz_edges": put(bp.horiz_edges),
         "sao": put(bp.sao),
     }
+    d["schedules"] = (unit_tables(d, bp) if device.type == "cuda"
+                      else [None, None])
+    return d
 
 
 def residual_planes(d: dict, bp: BatchPlan, device: torch.device) -> list:
@@ -528,6 +546,27 @@ def residual_planes(d: dict, bp: BatchPlan, device: torch.device) -> list:
         )
         classes.append((comp, size, r, org))
     return R.scatter_classes(classes, bp.n, dims, device)
+
+
+def walk_ctb_log2(bp: BatchPlan, comp: int) -> int:
+    """log2 of the CTB size in samples of component comp (4:2:0)."""
+    return bp.ctb_log2 - (1 if comp else 0)
+
+
+def unit_tables(d: dict, bp: BatchPlan) -> list:
+    """[luma, chroma] wavefront schedules of the intra kernels
+    (ops.intra.unit_table) of the plan's worklists d["steps"], on their
+    device, like source_tables."""
+    out = []
+    for c in range(2):
+        sub = 1 if c == 0 else 2
+        cl = walk_ctb_log2(bp, c)
+        out.append(I.unit_table(
+            d["steps"][c], d["counts"][c], ctb_log2=cl,
+            rows=-(-(bp.height // sub) >> cl),
+            tile_col_bd=tuple(b // sub for b in bp.tile_col_bd),
+            tile_row_bd=tuple(b // sub for b in bp.tile_row_bd)))
+    return out
 
 
 def source_tables(d: dict, bp: BatchPlan) -> list:
@@ -563,15 +602,16 @@ def core(d: dict, bp: BatchPlan, device: torch.device, stats=None) -> list:
 
     # ---- stage 2: intra walks ----
     with _stage(stats, "intra", device):
-        steps, counts, pcm = d["steps"], d["counts"], d["pcm"]
+        steps, counts, pcm, sch = (d["steps"], d["counts"], d["pcm"],
+                                   d["schedules"])
         srcs = source_tables(d, bp)
         y = I.intra_scan_luma(
             res[0], steps[0], srcs[0], counts[0], pcm[0], h=H, w=W,
-            strong_smoothing=bp.strong_smoothing, bd=bd_y,
+            strong_smoothing=bp.strong_smoothing, bd=bd_y, schedule=sch[0],
         )
         cb, cr = I.intra_scan_chroma2(
             res[1], res[2], steps[1], srcs[1], counts[1], pcm[1], pcm[2],
-            h=Hc, w=Wc, bd=bd_c,
+            h=Hc, w=Wc, bd=bd_c, schedule=sch[1],
         )
         planes = [y, cb, cr]
 
@@ -792,14 +832,14 @@ def default_entropy(sps, pps, hints: dict):
     """The overlapped paths' entropy: native C++ with pack_pad=PAD, so
     each worker also pre-packs its tile and pack_batch only copies
     segments (GIL released inside); the Python twin without native."""
-    from heif_tpu import native
+    from heif_tpu_torch import native
 
     if native.available():
         workers = hints.get("entropy_workers")
         return lambda ps: native.decode_tiles_parallel(
             sps, pps, ps, pack_pad=PAD, max_workers=workers
         )
-    from heif_tpu.cabac.syntax import TileSyntaxDecoder
+    from heif_tpu_torch.cabac.syntax import TileSyntaxDecoder
 
     return lambda ps: [TileSyntaxDecoder(sps, pps, p).decode() for p in ps]
 

@@ -34,8 +34,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from heif_tpu.cabac import engine as E
-from heif_tpu.cabac.trace import KIND_BYPASS, KIND_CTX, KIND_PAD, KIND_TERMINATE
+from heif_tpu_torch.cabac import engine as E
+from heif_tpu_torch.cabac.trace import KIND_BYPASS, KIND_CTX, KIND_PAD, KIND_TERMINATE
+from heif_tpu_torch.device import resolve_device
 from heif_tpu_torch.tables import cabac_tables_on
 
 LANES = 128
@@ -480,7 +481,8 @@ def replay_windowed(windows, biw0, c0p, kinds, slots):
 
 # --------------------------------------------------------------------------
 # numpy entry points, as heif_tpu.ops.pallas_cabac's (device selects the
-# kernel on "cuda" or the plain engine on "cpu")
+# kernel on "cuda", the default, or the plain engine on "cpu"; without a
+# card a call that names no device raises)
 # --------------------------------------------------------------------------
 
 
@@ -502,9 +504,10 @@ def _pad_steps(kinds, slots, blk):
 
 
 def cabac_replay_batches(words, c0, kinds, slots, blk: int = 2048,
-                         device="cpu"):
+                         device=None):
     """Decode S bins for B x 128 streams in one launch. Returns numpy
     (bins [B, S, 128], ctx_final [B, N_CTX, 128])."""
+    device = resolve_device(device)
     S = kinds.shape[1]
     kinds, slots = _pad_steps(kinds, slots, blk)
     bins, state = replay(*(as_tensor(a, device) for a in (words, c0, kinds, slots)))
@@ -512,17 +515,19 @@ def cabac_replay_batches(words, c0, kinds, slots, blk: int = 2048,
 
 
 def cabac_replay_batch(words, c0, kinds, slots, blk: int = 2048,
-                       device="cpu"):
+                       device=None):
     """Decode S bins for 128 streams; returns (bins [S, 128], ctx_final)."""
+    device = resolve_device(device)
     bins, state = cabac_replay_batches(
         words[None], c0[None], kinds[None], slots[None], blk=blk,
         device=device)
     return bins[0], state[0]
 
 
-def replay_segments(rbsp: bytes, segments, blk: int = 2048, device="cpu"):
+def replay_segments(rbsp: bytes, segments, blk: int = 2048, device=None):
     """Replay trace segments; returns per-segment (bins, p_final,
     mps_final)."""
+    device = resolve_device(device)
     words, c0, kinds, slots = pack_segments(rbsp, segments)
     bins, state = cabac_replay_batch(words, c0, kinds, slots, blk=blk,
                                      device=device)
@@ -549,10 +554,11 @@ def stack_batches(batches: list, keys: tuple, fills: tuple) -> list:
     return out
 
 
-def replay_image(entries, blk: int = 1024, device="cpu"):
+def replay_image(entries, blk: int = 1024, device=None):
     """Replay every stream of an image (list of (rbsp, TraceSegment)) in
     one launch of length-sorted 128-lane batches; returns per-entry
     (bins, p_final, mps_final) in input order."""
+    device = resolve_device(device)
     packed = pack_sorted_batches(entries, blk=blk)
     arrays = stack_batches(packed, ("words", "c0", "kinds", "slots"),
                            (0, 0, KIND_PAD, 0))
@@ -581,21 +587,23 @@ def windowed_inputs(p: dict, device) -> tuple:
     )
 
 
-def replay_windowed_batch(batch, blk: int = 256, device="cpu"):
+def replay_windowed_batch(batch, blk: int = 256, device=None):
     """Windowed replay of <=128 segments; returns numpy (bins [S_pad,128],
     state [N_CTX,128])."""
+    device = resolve_device(device)
     p = pack_windowed_batch(batch, blk=blk)
     bins, state = replay_windowed(*windowed_inputs(p, device))
     return bins.cpu().numpy()[0], _unpack_ctx4(state.cpu().numpy()[0])
 
 
-def windowed_image_inputs(entries, blk: int = 256, device="cpu"):
+def windowed_image_inputs(entries, blk: int = 256, device=None):
     """Pack (rbsp, TraceSegment) pairs, segments with `positions`, into one
     windowed launch: length-sorted 128-lane batches (pack_windowed_batch
     each) stacked on the batch axis. Zero window words past a batch's
     w_blk read like the kernel's past-the-end fetch, and extra blocks hold
     only KIND_PAD steps, so each batch gives what its own launch would.
     Returns (tensors for `replay_windowed`, batches of entry indices)."""
+    device = resolve_device(device)
     order = sorted(range(len(entries)), key=lambda i: entries[i][1].n_bins)
     batches = [order[lo : lo + LANES] for lo in range(0, len(order), LANES)]
     packed = [pack_windowed_batch([entries[i] for i in idx], blk=blk)
@@ -619,9 +627,10 @@ def windowed_image_inputs(entries, blk: int = 256, device="cpu"):
     return args, batches
 
 
-def replay_windowed_image(entries, blk: int = 256, device="cpu"):
+def replay_windowed_image(entries, blk: int = 256, device=None):
     """Windowed replay of every stream of an image in one launch; returns
     per-entry (bins, p_final, mps_final) in input order."""
+    device = resolve_device(device)
     args, batches = windowed_image_inputs(entries, blk, device)
     bins, state = replay_windowed(*args)
     bins, state = bins.cpu().numpy(), state.cpu().numpy()

@@ -33,10 +33,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from heif_tpu.cabac import engine as E
-from heif_tpu.cabac.envelope import KIND_TU
-from heif_tpu.cabac.trace import KIND_BYPASS, KIND_CTX, KIND_PAD
-from heif_tpu.hevc.scans import scan_order
+from heif_tpu_torch.cabac import engine as E
+from heif_tpu_torch.cabac.envelope import KIND_TU
+from heif_tpu_torch.cabac.trace import KIND_BYPASS, KIND_CTX, KIND_PAD
+from heif_tpu_torch.device import resolve_device
+from heif_tpu_torch.hevc.scans import scan_order
 from heif_tpu_torch.ops.cabac import (
     LANES,
     N_CTX,
@@ -138,7 +139,7 @@ def envelope_entries(sps, pps, ps):
     n_steps, spans) tuple per substream, its spans in decode order, and
     the host decoder's SyntaxTensors (whose coeffs are the golden
     coefficient planes)."""
-    from heif_tpu.cabac.envelope import build_envelope_tape, envelope_trace
+    from heif_tpu_torch.cabac.envelope import build_envelope_tape, envelope_trace
 
     tr = envelope_trace(sps, pps, ps)
     rbsp = bytes(ps.rbsp)
@@ -668,11 +669,12 @@ def gen(words, tape, c0, n_steps: int, debug: bool = False):
 
 
 # --------------------------------------------------------------------------
-# numpy entry points, as heif_tpu.ops.pallas_cabac_gen's
+# numpy entry points, as heif_tpu.ops.pallas_cabac_gen's (device: "cuda",
+# the default, or "cpu"; without a card a call that names no device raises)
 # --------------------------------------------------------------------------
 
 
-def run_gen_batch(entries, blk: int = 128, device="cpu", debug: bool = False):
+def run_gen_batch(entries, blk: int = 128, device=None, debug: bool = False):
     """Run the generator on <=128 streams.
 
     entries: (rbsp, TraceSegment, envelope_tape, n_steps) per lane. The
@@ -680,6 +682,7 @@ def run_gen_batch(entries, blk: int = 128, device="cpu", debug: bool = False):
     Returns numpy (events [S_steps, 128], ctx_final [N_CTX, 128]), and
     the per-step debug plane [S_steps, 128] as a third element when
     debug is set."""
+    device = resolve_device(device)
     p = pack_gen_batch(entries)
     S = -(-p["S_steps"] // blk) * blk
     ev, dbg, state = gen(as_tensor(p["words"][None], device),
@@ -691,13 +694,14 @@ def run_gen_batch(entries, blk: int = 128, device="cpu", debug: bool = False):
     return out
 
 
-def image_inputs(entries, blk: int = 512, device="cpu"):
+def image_inputs(entries, blk: int = 512, device=None):
     """Pack every stream of an image into one launch: length-sorted
     128-lane batches stacked on the batch axis (one CUDA block each).
     Zero words past a batch's end read like the kernel's past-the-end
     fetch, and KIND_PAD tape rows never advance a lane, so every batch
     gives what its own launch would. Returns (tensors, n_steps, batches)
     with tensors = (words, tape, c0)."""
+    device = resolve_device(device)
     batches = pack_gen_batches(entries)
     packed = [pack_gen_batch([e[:4] for e in batch]) for batch, _ in batches]
     words, tape, c0 = stack_batches(packed, ("words", "tape", "c0"),
@@ -706,12 +710,13 @@ def image_inputs(entries, blk: int = 512, device="cpu"):
     return tuple(as_tensor(a, device) for a in (words, tape, c0)), S, batches
 
 
-def gen_image(entries, blk: int = 512, device="cpu"):
+def gen_image(entries, blk: int = 512, device=None):
     """Run the generator over every stream of an image in one launch.
 
     entries: (rbsp, TraceSegment, envelope_tape, n_steps, spans) per
     stream. Returns per-entry (events_col, p_final, mps_final) in input
     order."""
+    device = resolve_device(device)
     args, S, batches = image_inputs(entries, blk, device)
     ev, _, state = gen(*args, S)
     ev, state = ev.cpu().numpy(), state.cpu().numpy()

@@ -184,10 +184,10 @@ def decode_rank_shard(sps, pps, slices, mesh: list) -> list:
 
 
 def _parse(data: bytes):
-    from heif_tpu.container.reader import HeifReader, parse_grid_config
-    from heif_tpu.hevc import params
-    from heif_tpu.hevc import slice as sl
-    from heif_tpu.hevc.rbsp import remove_emulation_prevention
+    from heif_tpu_torch.container.reader import HeifReader, parse_grid_config
+    from heif_tpu_torch.hevc import params
+    from heif_tpu_torch.hevc import slice as sl
+    from heif_tpu_torch.hevc.rbsp import remove_emulation_prevention
 
     r = HeifReader(data)
     heif = r.read()

@@ -14,8 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from heif_tpu.cabac.syntax import chroma_qp_from_luma
-from heif_tpu.ops import tables as TB
+from heif_tpu_torch.cabac.syntax import chroma_qp_from_luma
+from heif_tpu_torch.ops import ref_tables as TB
 
 MAX_S = 32  # largest transform / prediction block
 
@@ -137,8 +137,8 @@ _SIG4_MAP = (0, 1, 4, 5, 2, 3, 4, 5, 6, 6, 8, 8, 7, 7, 8, 8)
 
 
 def _cabac_arrays() -> dict[str, np.ndarray]:
-    from heif_tpu.cabac import engine as E
-    from heif_tpu.hevc.scans import scan_order, scan_pos_of
+    from heif_tpu_torch.cabac import engine as E
+    from heif_tpu_torch.hevc.scans import scan_order, scan_pos_of
 
     tbl = np.zeros(256, np.int64)
     win = np.zeros(128, np.int64)

@@ -20,15 +20,15 @@ def image_slices(data: bytes):
     """(sps, pps, slices, megapixels) of the primary item of a HEIF file:
     the parsed slice header of each grid tile, in grid order, or of the
     item itself. NAL units are split with the hvcC record's length size
-    and each item's one VCL NAL is picked by heif_tpu's _select_vcl_nal,
+    and each item's one VCL NAL is picked by models.decoder._select_vcl_nal,
     as HeicDecoder.decode does. megapixels is the grid's output size, or
     the coded picture's for a single item."""
-    from heif_tpu.container import grammar as g
-    from heif_tpu.container.reader import HeifReader, parse_grid_config
-    from heif_tpu.hevc import params
-    from heif_tpu.hevc import slice as sl
-    from heif_tpu.hevc.rbsp import remove_emulation_prevention
-    from heif_tpu.models.decoder import _select_vcl_nal
+    from heif_tpu_torch.container import grammar as g
+    from heif_tpu_torch.container.reader import HeifReader, parse_grid_config
+    from heif_tpu_torch.hevc import params
+    from heif_tpu_torch.hevc import slice as sl
+    from heif_tpu_torch.hevc.rbsp import remove_emulation_prevention
+    from heif_tpu_torch.models.decoder import _select_vcl_nal
 
     reader = HeifReader(data)
     heif = reader.read()

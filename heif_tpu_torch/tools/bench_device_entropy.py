@@ -43,7 +43,7 @@ def trace_entries(data: bytes, gen: bool = False):
     TraceSegment) and goldens None; with gen, generator entries (rbsp,
     TraceSegment, envelope_tape, n_steps, spans) and each tile's host
     coefficient planes. tile_of gives each entry's tile (grid order)."""
-    from heif_tpu.cabac.trace import trace_tile
+    from heif_tpu_torch.cabac.trace import trace_tile
     from heif_tpu_torch.ops.cabac_gen import envelope_entries
     from heif_tpu_torch.tools import image_slices
 

@@ -12,8 +12,8 @@ heif_tpu/utils/oracle.py:decode_tile_nals builds it for libde265).
 
 from __future__ import annotations
 
-from heif_tpu.container.reader import HeifReader
-from heif_tpu.hevc import slice as sl
+from heif_tpu_torch.container.reader import HeifReader
+from heif_tpu_torch.hevc import slice as sl
 
 START = b"\x00\x00\x00\x01"
 

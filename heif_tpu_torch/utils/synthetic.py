@@ -1,9 +1,10 @@
 """Synthetic tile batches that reach the paths the flagship image does not.
 
-Built on heif_tpu.utils.synthetic (a consistent sps / pps / slice header
-and SyntaxTensors without a bitstream), extended to a random transform
-quadtree in z-order (TUs of 4 to 32), random intra modes, PCM blocks,
-random SAO parameters and a chosen bit depth. The flagship file is 8-bit
+A consistent sps / pps / slice header (synthetic_sps_pps and _FakeParsed,
+copies of heif_tpu/utils/synthetic.py's) and SyntaxTensors without a
+bitstream: a random transform quadtree in z-order (TUs of 4 to 32),
+random intra modes, PCM blocks, random SAO parameters and a chosen bit
+depth. The flagship file is 8-bit
 without PCM, and the TPU Pallas intra kernels never took 10-bit or PCM;
 these batches hold the port's kernels against its plain walk there.
 """
@@ -12,11 +13,38 @@ from __future__ import annotations
 
 import numpy as np
 
-from heif_tpu.cabac import types as T
-from heif_tpu.cabac.syntax import chroma_qp_from_luma
-from heif_tpu.utils.synthetic import _FakeParsed, synthetic_sps_pps
+from heif_tpu_torch.cabac import types as T
+from heif_tpu_torch.cabac.syntax import chroma_qp_from_luma
+from heif_tpu_torch.hevc import grammar as g
 
 CTB = 32
+
+
+def synthetic_sps_pps(size: int = 64):
+    sps = g.SequenceParameterSet()
+    sps.pic_width_in_luma_samples = size
+    sps.pic_height_in_luma_samples = size
+    sps.chroma_format_idc = 1
+    sps.log2_min_luma_coding_block_size_minus3 = 0   # min CB 8
+    sps.log2_diff_max_min_luma_coding_block_size = 2  # CTB 32
+    sps.log2_min_luma_transform_block_size_minus2 = 0  # min TB 4
+    sps.log2_diff_max_min_luma_transform_block_size = 3  # max TB 32
+    sps.sample_adaptive_offset_enabled_flag = True
+    sps.scaling_list_enabled_flag = False
+    pps = g.PictureParameterSet()
+    sh = g.SliceSegmentHeader()
+    sh.slice_sao_luma_flag = True
+    sh.slice_sao_chroma_flag = True
+    return sps, pps, sh
+
+
+class _FakeParsed:
+    """Minimal stand-in for ParsedSlice (pack only reads .header)."""
+
+    def __init__(self, header):
+        self.header = header
+
+
 
 
 def _quadtree(rng, x, y, size, out):

@@ -141,12 +141,13 @@ def test_replay_plain_matches_pallas(traced):
     rbsp, segs = traced
     trunc = [_truncate(s, 128) for s in segs]
     words, c0, kinds, slots = C.pack_segments(rbsp, trunc)
-    bins, state = C.cabac_replay_batch(words, c0, kinds, slots, blk=128)
+    bins, state = C.cabac_replay_batch(words, c0, kinds, slots, blk=128,
+                                        device="cpu")
     jbins, jstate = PC.cabac_replay_batch(words, c0, kinds, slots, blk=128,
                                           interpret=True)
     np.testing.assert_array_equal(bins, jbins)
     np.testing.assert_array_equal(state, jstate)
-    got = C.replay_segments(rbsp, trunc, blk=128)
+    got = C.replay_segments(rbsp, trunc, blk=128, device="cpu")
     want = PC.replay_segments(rbsp, trunc, interpret=True, blk=128)
     for i, (g, w) in enumerate(zip(got, want)):
         for a, b in zip(g, w):
@@ -165,7 +166,7 @@ def test_replay_batches_two_batches_match_pallas(traced):
     kinds2[64:, :] = KIND_PAD  # the second batch stops early
     args = (np.stack([words, words]), np.stack([c0, c0]),
             np.stack([kinds, kinds2]), np.stack([slots, slots]))
-    bins, state = C.cabac_replay_batches(*args, blk=128)
+    bins, state = C.cabac_replay_batches(*args, blk=128, device="cpu")
     jbins, jstate = PC.cabac_replay_batches(*args, blk=128, interpret=True)
     np.testing.assert_array_equal(bins, jbins)
     np.testing.assert_array_equal(state, jstate)
@@ -179,7 +180,7 @@ def test_replay_image_input_order(traced):
     rbsp, segs = traced
     entries = [(rbsp, _truncate(s, 40 + 3 * i)) for i, s in enumerate(segs)]
     entries = entries[::-1]  # sorting must permute
-    got = C.replay_image(entries, blk=32)
+    got = C.replay_image(entries, blk=32, device="cpu")
     want = PC.replay_image(entries, blk=32, interpret=True)
     for (_, t), g, w in zip(entries, got, want):
         np.testing.assert_array_equal(g[0], t.bins)
@@ -191,7 +192,7 @@ def test_replay_windowed_plain_matches_pallas(traced):
     """256-bin prefixes, 64-bin blocks (3 re-anchors per lane)."""
     rbsp, segs = traced
     batch = [(rbsp, _truncate(s, 256)) for s in segs]
-    bins, state = C.replay_windowed_batch(batch, blk=64)
+    bins, state = C.replay_windowed_batch(batch, blk=64, device="cpu")
     jbins, jstate = PC.replay_windowed_batch(batch, blk=64, interpret=True)
     np.testing.assert_array_equal(bins, jbins)
     np.testing.assert_array_equal(state, jstate)
@@ -208,7 +209,7 @@ def test_replay_windowed_image_batches_match_pallas(traced):
     short = [(rbsp, _truncate(s, 64)) for s in segs]
     long = [(rbsp, _truncate(s, 192)) for s in segs]
     entries = (long * 4 + short * 5)[::-1]  # 144 streams: two batches
-    got = C.replay_windowed_image(entries, blk=64)
+    got = C.replay_windowed_image(entries, blk=64, device="cpu")
     for batch in (short, long):
         bins, state = PC.replay_windowed_batch(batch, blk=64, interpret=True)
         for lane, e in enumerate(batch):
@@ -227,7 +228,7 @@ def test_replay_windowed_image_batches_match_pallas(traced):
 
 def test_replay_plain_full_tile_matches_golden(traced):
     rbsp, segs = traced
-    for i, (bins, p_f, mps_f) in enumerate(C.replay_segments(rbsp, segs)):
+    for i, (bins, p_f, mps_f) in enumerate(C.replay_segments(rbsp, segs, device="cpu")):
         np.testing.assert_array_equal(bins, segs[i].bins, err_msg=f"seg {i}")
         np.testing.assert_array_equal(p_f, segs[i].p_final)
         np.testing.assert_array_equal(mps_f, segs[i].mps_final)
@@ -235,7 +236,8 @@ def test_replay_plain_full_tile_matches_golden(traced):
 
 def test_replay_windowed_plain_full_tile_matches_golden(traced):
     rbsp, segs = traced
-    bins, state = C.replay_windowed_batch([(rbsp, s) for s in segs], blk=256)
+    bins, state = C.replay_windowed_batch([(rbsp, s) for s in segs], blk=256,
+                                          device="cpu")
     for i, s in enumerate(segs):
         np.testing.assert_array_equal(bins[: s.n_bins, i].astype(np.uint8),
                                       s.bins, err_msg=f"seg {i}")

@@ -60,7 +60,7 @@ def tile0(halfmoonbay_bytes):
 @pytest.fixture(scope="module")
 def full_run(tile0):
     """gen_image over tile 0's 16 full streams on the CPU."""
-    return G.gen_image(tile0[1])
+    return G.gen_image(tile0[1], device="cpu")
 
 
 def test_pack_gen_batch_copy_matches(tile0):
@@ -85,7 +85,7 @@ def test_gen_plain_matches_pallas(tile0):
     """Steps capped at 256: events, debug and state planes equal the
     Pallas kernel's (interpret mode, blk 64)."""
     lanes = [(rb, s, t, min(ns, CAP)) for rb, s, t, ns, _ in tile0[1]]
-    ev, state, dbg = G.run_gen_batch(lanes, blk=64, debug=True)
+    ev, state, dbg = G.run_gen_batch(lanes, blk=64, device="cpu", debug=True)
     jev, jstate = PG.run_gen_batch(lanes, blk=64, interpret=True, debug=True)
     jdbg = PG.run_gen_batch.last_dbg
     assert ev.shape == jev.shape == (CAP, G.LANES)
@@ -137,8 +137,8 @@ def test_gen_plain_image_batches_keep_input_order(tile0):
     capped: per-entry results equal single-batch runs."""
     lanes = [(rb, s, t, min(ns, 64), sp) for rb, s, t, ns, sp in tile0[1]]
     entries = (lanes * 9)[::-1]
-    got = G.gen_image(entries, blk=64)
-    ev, state = G.run_gen_batch([e[:4] for e in lanes], blk=64)
+    got = G.gen_image(entries, blk=64, device="cpu")
+    ev, state = G.run_gen_batch([e[:4] for e in lanes], blk=64, device="cpu")
     for i, e in enumerate(entries):
         lane = lanes.index(e)
         np.testing.assert_array_equal(got[i][0][: ev.shape[0]], ev[:, lane])

@@ -1,11 +1,9 @@
 """heif_tpu_torch on a CUDA card, without JAX.
 
 The host with the card has no JAX, so this file imports only torch,
-numpy, heif_tpu_torch and the JAX-free layers of heif_tpu (container,
-hevc, cabac, native, ops.ref_recon, utils): never jax, heif_tpu.ops.batch,
-heif_tpu.ops.jax_recon, heif_tpu.ops.pallas_* or heif_tpu.parallel. Its
-references are the port's plain PyTorch versions and heif_tpu's host
-numpy reconstruction. Tolerance 0 throughout.
+numpy and heif_tpu_torch: never jax, and nothing of heif_tpu. Its
+references are the port's plain PyTorch versions and its copy of the
+host numpy reconstruction (ops.ref_recon). Tolerance 0 throughout.
 
 On a card (`cuda`-marked; each skips without one):
 - both intra kernels vs their plain walks on a synthetic 10-bit batch
@@ -16,7 +14,7 @@ On a card (`cuda`-marked; each skips without one):
 - decode_hevc(device="cuda") of flagship tile 1 as an Annex-B stream,
   with both entropy front ends, vs backend="ref".
 Anywhere: this file and every module of heif_tpu_torch import with jax
-made unimportable.
+and heif_tpu made unimportable.
 
 On the card: python -m pytest -q tests/test_torch_card.py
 """
@@ -30,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from heif_tpu.cabac.trace import TraceSegment, trace_tile
+from heif_tpu_torch.cabac.trace import TraceSegment, trace_tile
 from heif_tpu_torch import HeicDecoder
 from heif_tpu_torch.ops import batch as B
 from heif_tpu_torch.ops import cabac as C
@@ -84,15 +82,15 @@ def test_intra_kernels_match_plain_walks(cuda):
     d = B.plan_to_device(bp, cuda)
     res = B.residual_planes(d, bp, cuda)
     srcs = B.source_tables(d, bp)
-    steps, counts, pcm = d["steps"], d["counts"], d["pcm"]
+    steps, counts, pcm, sch = d["steps"], d["counts"], d["pcm"], d["schedules"]
     luma = dict(h=bp.height, w=bp.width, strong_smoothing=bp.strong_smoothing,
                 bd=bp.bit_depth_y)
     chroma = dict(h=bp.height // 2, w=bp.width // 2, bd=bp.bit_depth_c)
     luma_args = (res[0], steps[0], srcs[0], counts[0], pcm[0])
     chroma_args = (res[1], res[2], steps[1], srcs[1], counts[1], pcm[1], pcm[2])
     I.reset_launches()
-    got = (I.intra_scan_luma(*luma_args, **luma),
-           *I.intra_scan_chroma2(*chroma_args, **chroma))
+    got = (I.intra_scan_luma(*luma_args, schedule=sch[0], **luma),
+           *I.intra_scan_chroma2(*chroma_args, schedule=sch[1], **chroma))
     assert I.LAUNCHES == {"luma": 1, "chroma": 1}
     want = (I.luma_plain(*luma_args, **luma),
             *I.chroma2_plain(*chroma_args, **chroma))
@@ -141,11 +139,12 @@ def test_decode_hevc_on_card_equals_ref(cuda, halfmoonbay_bytes, entropy):
 
 
 def test_card_file_and_port_import_without_jax():
-    """This file and every module of heif_tpu_torch import with jax made
-    unimportable, and pull in none of heif_tpu's JAX modules."""
+    """This file and every module of heif_tpu_torch import with jax and
+    heif_tpu made unimportable, and pull in neither."""
     code = textwrap.dedent("""
         import importlib, importlib.util, pkgutil, sys
         sys.modules["jax"] = None
+        sys.modules["heif_tpu"] = None
         spec = importlib.util.spec_from_file_location("card", sys.argv[1])
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
         import heif_tpu_torch
@@ -154,9 +153,7 @@ def test_card_file_and_port_import_without_jax():
             if not m.name.endswith("__main__")]
         for name in names:
             importlib.import_module(name)
-        banned = ("jax.", "heif_tpu.ops.batch", "heif_tpu.ops.jax_recon",
-                  "heif_tpu.ops.pallas", "heif_tpu.parallel")
-        assert not [m for m in sys.modules if m.startswith(banned)]
+        assert not [m for m in sys.modules if m.startswith(("jax.", "heif_tpu."))]
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code, __file__], cwd=ROOT,

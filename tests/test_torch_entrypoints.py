@@ -20,12 +20,12 @@ import json
 import numpy as np
 import pytest
 
-from heif_tpu.hevc import params
 from heif_tpu.models.decoder import HeicDecoder as RefDecoder
 from heif_tpu.utils.heif_mux import mux_heic
 from heif_tpu.utils.profiling import DecodeStats
 from heif_tpu_torch import HeicDecoder
 from heif_tpu_torch import cli
+from heif_tpu_torch.hevc import params
 from heif_tpu_torch.tools import bench_burst, image_slices
 from heif_tpu_torch.tools import bench_device_entropy as BDE
 from heif_tpu_torch.utils import profiling
@@ -84,7 +84,7 @@ def test_decode_backend_ref_matches_heif_tpu(kind):
     stats = DecodeStats()
     got = HeicDecoder.decode(heic, backend="ref", device="cpu", stats=stats)
     want = RefDecoder.decode(heic, backend="ref")
-    assert got["info"] == want["info"]
+    assert dataclasses.asdict(got["info"]) == dataclasses.asdict(want["info"])
     _same_planes(got, want)
     _same_planes(HeicDecoder.decode(heic, device="cpu"), got)
     assert stats.scheduler["effective_backend"] == "ref"

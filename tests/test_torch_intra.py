@@ -96,11 +96,13 @@ def _xla_scan(bp, res, comp, xs_comp, src):
 def _port_walks(bp, d, res, srcs):
     H, W = bp.height, bp.width
     y = I.intra_scan_luma(
-        res[0], d["steps"][0], srcs[0], d["counts"][0], d["pcm"][0], h=H,
-        w=W, strong_smoothing=bp.strong_smoothing, bd=bp.bit_depth_y)
+        res[0], d["steps"][0], srcs[0], d["counts"][0], d["pcm"][0],
+        h=H, w=W, strong_smoothing=bp.strong_smoothing, bd=bp.bit_depth_y,
+        schedule=d["schedules"][0])
     cb, cr = I.intra_scan_chroma2(
         res[1], res[2], d["steps"][1], srcs[1], d["counts"][1], d["pcm"][1],
-        d["pcm"][2], h=H // 2, w=W // 2, bd=bp.bit_depth_c)
+        d["pcm"][2], h=H // 2, w=W // 2, bd=bp.bit_depth_c,
+        schedule=d["schedules"][1])
     return [p.cpu().numpy() for p in (y, cb, cr)]
 
 
@@ -262,22 +264,32 @@ def test_plain_walk_10bit_pcm_matches_xla_scan(comp):
 def test_wrappers_check_inputs_and_count_only_launches():
     bp = TB.pack_batch(*synthetic_batch(n=1, size=32, bd=8, pcm=False))
     d, res, srcs = _inputs(bp)
+    assert d["schedules"] == [None, None]  # the plain walks need none
+    sch = TB.unit_tables(d, bp)[0]
+    assert sch.ctb_log2 == bp.ctb_log2
     I.reset_launches()
+    kw = dict(schedule=sch, strong_smoothing=False, bd=8)
     y = I.intra_scan_luma(res[0], d["steps"][0], srcs[0], d["counts"][0],
-                          h=32, w=32, strong_smoothing=False, bd=8)
+                          h=32, w=32, **kw)
     assert y.shape == (1, 32, 32) and y.dtype == torch.int32
     assert I.LAUNCHES == {"luma": 0, "chroma": 0}  # plain walks do not count
     with pytest.raises(TypeError):
         I.intra_scan_luma(res[0].long(), d["steps"][0], srcs[0],
-                          d["counts"][0], h=32, w=32,
-                          strong_smoothing=False, bd=8)
+                          d["counts"][0], h=32, w=32, **kw)
     with pytest.raises(ValueError):
         I.intra_scan_luma(res[0], d["steps"][0], srcs[0], d["counts"][0],
-                          h=64, w=32, strong_smoothing=False, bd=8)
+                          h=64, w=32, **kw)
     with pytest.raises(ValueError):
         I.intra_scan_luma(res[0][:, ::2], d["steps"][0], srcs[0],
-                          d["counts"][0], h=32, w=32,
-                          strong_smoothing=False, bd=8)
+                          d["counts"][0], h=32, w=32, **kw)
+    with pytest.raises(ValueError):
+        I.intra_scan_luma(res[0], d["steps"][0], srcs[0], d["counts"][0],
+                          h=32, w=32, **dict(kw, schedule=sch._replace(
+                              units=sch.units[:, :, :4].contiguous())))
+    # without a schedule the CPU runs the plain walk all the same
+    assert torch.equal(I.intra_scan_luma(
+        res[0], d["steps"][0], srcs[0], d["counts"][0], h=32, w=32,
+        strong_smoothing=False, bd=8), y)
 
 
 @pytest.fixture
