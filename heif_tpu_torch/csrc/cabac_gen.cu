@@ -1,35 +1,44 @@
-// CABAC engine with the residual_coding() request generator, for Hopper:
-// one substream per thread.
+// CABAC engine with the residual_coding() request generator, for Hopper.
 //
-// Replaces the TPU Pallas kernel heif_tpu/ops/pallas_cabac_gen.py
-// `_kernel` (launched by `_gen_call` / `run_gen_batch` / `gen_image`).
-// Each lane replays an envelope tape (non-residual bins plus one KIND_TU
-// marker per transform block) and, at each marker, runs the 13-phase
-// residual_coding() state machine (§7.3.8.11) that derives every request
-// itself: last_sig prefix / suffix, coded_sub_block_flag, sig_coeff_flag
-// (§9.3.4.2.5), greater1 / greater2, signs with sign-data hiding, and
-// coeff_abs_level_remaining with Rice adaptation; a flush emits one
-// coefficient event per step. One bin or one flush per lane per step, so
-// the event plane [step, lane] and the debug plane equal the Pallas
-// kernel's and the plain version's (heif_tpu_torch/ops/cabac_gen.py)
-// step for step.
+// Replaces the TPU Pallas kernel heif_tpu/ops/pallas_cabac_gen.py:171
+// `_kernel` (launched by `_gen_call`, :864, from `run_gen_batch` /
+// `gen_image`). Each lane replays an envelope tape (non-residual bins plus
+// one KIND_TU marker per transform block) and, at each marker, runs the
+// 13-phase residual_coding() state machine (§7.3.8.11) that derives every
+// request itself: last_sig prefix / suffix, coded_sub_block_flag,
+// sig_coeff_flag (§9.3.4.2.5), greater1 / greater2, signs with sign-data
+// hiding, and coeff_abs_level_remaining with Rice adaptation; a flush
+// emits one coefficient event per step. One bin or one flush per lane per
+// step, so the event plane [step, lane] and the debug plane equal the
+// Pallas kernel's and the plain version's (heif_tpu_torch/ops/cabac_gen.py)
+// step for step. The registers keep the Pallas register map
+// (pallas_cabac_gen.py:217-224; `r[i]` below).
 //
-// Design: the Pallas kernel computes every phase each step and selects,
-// over 128 lanes, with mask reductions for every per-lane lookup. Here a
-// thread is a lane and runs only its own phase: a switch on the phase
-// does that phase's update, then the entries it chains into (TU body ->
-// subblock entry -> greater1 -> sign -> remaining -> flush -> next
-// subblock) run in the Pallas kernel's order. The registers keep the
-// Pallas register map (pallas_cabac_gen.py:217-224; `r[i]` below).
-// Context bytes, the arithmetic decoder and the 256-entry table are
-// cabac_engine.cuh's; the scan tables are in constant memory; the levels
-// of the current subblock are a [16][128] shared-memory plane.
+// What bounds it: the longest lane's chain of steps. A step is a bin
+// (cabac_engine.cuh), then the phase's state update and the next
+// request's derivation, each needing the bin before; the bytes moved are
+// tiny. A lane's warp issues every instruction of its step in order,
+// nearly alone on its scheduler, so the step's length counts too.
 //
-// What bounds it: latency, as for the replay (cabac.cu): each step is a
-// dependent chain of a bin decode plus a few dozen integer operations,
-// the flagship image gives 6 blocks of 128 lanes for 132 SMs, and the
-// lanes of a warp sit in different phases (divergence) and read different
-// table rows.
+// What the design does about that:
+// - A warp carries one substream and all its threads run the same step,
+//   so the phase switch and the chained entries (TU body -> subblock
+//   entry -> greater1 -> sign -> remaining -> flush -> next subblock, in
+//   the Pallas kernel's order) never diverge; the 768 substreams of a
+//   48-tile image are 768 one-warp blocks over all SMs, the longest
+//   first.
+// - Every lookup on the chain is in shared memory: the spec table (int4
+//   rows), the subblock and 4x4 scans, the lane's contexts and the levels
+//   of its current subblock; sig4 is two registers. Each table has a 0
+//   row where an out-of-range index lands, so no lookup branches.
+// - No load on the chain: steps run in blocks of 32, and before a block
+//   the warp slides its shared-memory rings of stream words and envelope
+//   tape (cabac_engine.cuh); the tape entry after the current one is held
+//   before it is needed; the block's event and debug words are stored
+//   after it, 32 in one instruction each.
+// - A finished lane stops: at a KIND_PAD envelope entry in P_TAPE nothing
+//   moves any more, so the lane writes the constant rest of its planes
+//   (event 0, the same debug word) in a store loop and ends.
 
 #include "cabac_engine.cuh"
 
@@ -50,39 +59,33 @@ constexpr int B_G1 = 106;
 constexpr int B_G2 = 130;
 
 // subblock scans [scan*256 + (log2-2)*64 + key]: fwd = xs | ys<<8 by scan
-// index, inv = scan index by ys*8+xs; 4x4 scans [scan*16 + key] likewise;
-// the 4x4 sig ctxIdxMap 4 bits an entry (entries 0-7, 8-15)
-__constant__ int32_t c_sb_fwd[768];
-__constant__ int32_t c_sb_inv[768];
-__constant__ int32_t c_co_fwd[48];
-__constant__ int32_t c_co_inv[48];
-__constant__ int32_t c_sig4[2];
+// index, inv = scan index by ys*8+xs; 4x4 scans [scan*16 + key] likewise
+// (in shared memory, each followed by a 0 entry); the 4x4 sig ctxIdxMap 4
+// bits an entry (entries 0-7, 8-15)
+constexpr int N_SB = 768, N_CO = 48;
+constexpr int SB_FWD = 0, SB_INV = N_SB + 1, CO_FWD = 2 * (N_SB + 1);
+constexpr int CO_INV = CO_FWD + N_CO + 1, SCAN_WORDS = CO_INV + N_CO + 1;
+struct Scans {
+  const int32_t *sb_fwd, *sb_inv, *co_fwd, *co_inv;
+  int32_t sig4_lo, sig4_hi;
+};
+// a lane's levels of its current subblock: 16, a row that stays 0 (read
+// for a position past 15) and a scratch row (written for one)
+constexpr int LV_ZERO = 16, LV_SCRATCH = 17, LV_ROWS = 18;
 
-// table[idx], 0 outside [0, n) (the Pallas masked lookup)
+// table[idx] of an n-entry table followed by a 0 entry: 0 outside [0, n)
+// (the Pallas masked lookup)
 __device__ __forceinline__ int32_t lut(const int32_t* tab, int n, int idx) {
-  return (unsigned)idx < (unsigned)n ? tab[idx] : 0;
+  return tab[min((unsigned)idx, (unsigned)n)];
 }
 
 // index of the highest set bit of x (16-bit values); -1 when x <= 0
 __device__ __forceinline__ int msb16(int32_t x) {
-  int r = 0;
-  int32_t cur = x;
-  for (int b = 8; b > 0; b >>= 1) {
-    const int32_t hi = srl(cur, b);
-    if (hi > 0) {
-      r += b;
-      cur = hi;
-    }
-  }
-  return x > 0 ? r : -1;
+  return x > 0 ? 31 - __clz(min(x, 0xFFFF)) : -1;
 }
 
 __device__ __forceinline__ int32_t popcount16(int32_t v) {
-  uint32_t x = (uint32_t)v;
-  x = x - ((x >> 1) & 0x5555u);
-  x = (x & 0x3333u) + ((x >> 2) & 0x3333u);
-  x = (x + (x >> 4)) & 0x0F0Fu;
-  return (int32_t)((x + (x >> 8)) & 0x1Fu);
+  return __popc((uint32_t)v & 0xFFFFu);
 }
 
 // (1 << n) - 1 for n >= 0, wrapping (all ones for n >= 32)
@@ -138,14 +141,15 @@ __device__ __forceinline__ void csbf_neighbours(const Lane& g, const Desc& d,
 }
 
 // sig_coeff_flag context slot (§9.3.4.2.5) for position r18
-__device__ __forceinline__ int sig_slot(const Lane& g, const Desc& d) {
+__device__ __forceinline__ int sig_slot(const Lane& g, const Desc& d,
+                                        const Scans& T) {
   const int xs = g.sbxy & 255, ys = (g.sbxy >> 8) & 255;
-  const int32_t xy = lut(c_co_fwd, 48, d.scan * 16 + max(g.posn, 0));
+  const int32_t xy = lut(T.co_fwd, N_CO, d.scan * 16 + max(g.posn, 0));
   const int xp = xy & 255, yp = srl(xy, 8) & 255;
   const int xc = (xs << 2) + xp, yc = (ys << 2) + yp;
   const int s4i = (yp << 2) + xp;
-  const int sig4 = s4i < 8 ? srl(c_sig4[0], 4 * s4i) & 15
-                           : srl(c_sig4[1], 4 * (s4i - 8)) & 15;
+  const int sig4 = s4i < 8 ? srl(T.sig4_lo, 4 * s4i) & 15
+                           : srl(T.sig4_hi, 4 * (s4i - 8)) & 15;
   int right, below;
   csbf_neighbours(g, d, right, below);
   const int sums = xp + yp;
@@ -167,9 +171,9 @@ __device__ __forceinline__ int sig_slot(const Lane& g, const Desc& d) {
 
 // ENTER_SB(i): subblock i becomes current; returns sig_empty (the last
 // subblock with last_pos 0 has an empty sig loop and goes to greater1)
-__device__ __forceinline__ bool enter_sb(Lane& g, const Desc& d, int i,
-                                         int& phase) {
-  const int32_t fxy = lut(c_sb_fwd, 768, d.sb_base + max(i, 0));
+__device__ __forceinline__ bool enter_sb(Lane& g, const Desc& d,
+                                         const Scans& T, int i, int& phase) {
+  const int32_t fxy = lut(T.sb_fwd, N_SB, d.sb_base + max(i, 0));
   const int exs = fxy & 255, eys = srl(fxy, 8) & 255;
   const int raster = eys * d.sb_side + exs;
   const bool is_last = i == g.lastsb, is_first = i == 0;
@@ -207,13 +211,15 @@ __device__ __forceinline__ int32_t rem_prefix_value(int pfx, int rice) {
                  : shl(wadd(shl(1, max(pfx - 3, 0)), 2), rice);
 }
 
-// One lockstep step: request -> bin -> state update. Returns the event
-// word; *dbg gets kind | slot<<3 | bin<<12 | phase<<16.
-__device__ __forceinline__ int32_t gen_step(Lane& g, uint8_t* ctx,
-                                            int32_t* lv,
-                                            const uint32_t* col, int W,
-                                            const int32_t* tape_col, int s_env,
-                                            int32_t* dbg) {
+// One lockstep step: request -> bin -> state update. entry is the
+// envelope tape's row g.tptr. Returns the event word; dbg gets
+// kind | slot<<3 | bin<<12 | phase<<16.
+template <class Ctx, class Lv, class Col>
+__device__ __forceinline__ int32_t gen_step(Lane& g, const Ctx& ctx,
+                                            const Lv& lv, const int4* tbl4,
+                                            const Scans& T, Col& words,
+                                            int32_t entry, int s_env,
+                                            int32_t& dbg) {
   const int phase = g.phase;
   int desc = g.desc;
   int cnt = g.cnt;
@@ -223,9 +229,6 @@ __device__ __forceinline__ int32_t gen_step(Lane& g, uint8_t* ctx,
 
   // ---------- request resolution ----------
   if (phase == P_TAPE) {
-    const int32_t entry =
-        (unsigned)g.tptr < (unsigned)s_env ? tape_col[(size_t)g.tptr * LANES]
-                                           : 0;
     e_kind = entry & 7;
     const int32_t e_pay = srl(entry, 3);
     if (e_kind == KIND_TU) {  // consumed here; last_x bin 0 issues now
@@ -265,7 +268,7 @@ __device__ __forceinline__ int32_t gen_step(Lane& g, uint8_t* ctx,
     }
     case P_SIG:
       kind = KIND_CTX;
-      slot = sig_slot(g, d);
+      slot = sig_slot(g, d, T);
       break;
     case P_G1:
       kind = KIND_CTX;
@@ -279,8 +282,10 @@ __device__ __forceinline__ int32_t gen_step(Lane& g, uint8_t* ctx,
       break;
   }
 
-  const int b = decode_bin(g.e, kind, slot, ctx, col, W);
-  if (dbg) *dbg = kind | shl(slot, 3) | (b << 12) | (phase << 16);
+  int c_new;
+  const int b = decode_bin(g.e, kind, ctx_read(ctx, slot), tbl4, words, c_new);
+  ctx_write(ctx, kind, slot, c_new);
+  dbg = kind | shl(slot, 3) | (b << 12) | (phase << 16);
 
   // ---------- state update ----------
   int32_t ev = 0;
@@ -442,7 +447,7 @@ __device__ __forceinline__ int32_t gen_step(Lane& g, uint8_t* ctx,
     }
     case P_FLUSH: {  // emit one coefficient event
       const int n = max(g.posn, 0);
-      const int32_t stored = n < 16 ? lv[n * LANES] : 0;
+      const int32_t stored = lv.get(min(n, LV_ZERO));
       const int32_t level = (srl(g.remmask, n) & 1) ? stored : coeff_base(g, n);
       const int sgn = (g.hidden > 0 && n == g.firstsig)
                           ? (g.sumabs & 1)
@@ -469,12 +474,12 @@ __device__ __forceinline__ int32_t gen_step(Lane& g, uint8_t* ctx,
     }
     g.lastx = lx;
     g.lasty = ly;
-    g.lastsb = lut(c_sb_inv, 768,
+    g.lastsb = lut(T.sb_inv, N_SB,
                    wadd(d.sb_base, wadd(shl(srl(ly, 2), 3), srl(lx, 2))));
-    g.lastpos = lut(c_co_inv, 48, d.scan * 16 + ((ly & 3) << 2) + (lx & 3));
+    g.lastpos = lut(T.co_inv, N_CO, d.scan * 16 + ((ly & 3) << 2) + (lx & 3));
     g.csl = g.csh = 0;
     g.prevg1 = -1;
-    if (enter_sb(g, d, g.lastsb, ph)) g1_entry = true;
+    if (enter_sb(g, d, T, g.lastsb, ph)) g1_entry = true;
   }
   if (g1_entry) {
     if (g.sig == 0) {
@@ -522,7 +527,7 @@ __device__ __forceinline__ int32_t gen_step(Lane& g, uint8_t* ctx,
     if (level > shl(3, g.rice)) g.rice = min(g.rice + 1, 4);  // Rice update
     g.sumabs = wadd(g.sumabs, level);
     const int n = max(g.posn, 0);
-    if (n < 16) lv[n * LANES] = level;
+    lv.set(n < 16 ? n : LV_SCRATCH, level);
     const int below = msb16(g.remmask & below_mask(g.posn));
     if (below >= 0) {
       g.posn = below;
@@ -542,39 +547,92 @@ __device__ __forceinline__ int32_t gen_step(Lane& g, uint8_t* ctx,
     if (nexti < 0)
       ph = P_TAPE;  // TU done: back to the envelope tape
     else
-      enter_sb(g, d, nexti, ph);
+      enter_sb(g, d, T, nexti, ph);
   }
   g.phase = ph;
   g.cnt = cnt;
   return ev;
 }
 
-__global__ void __launch_bounds__(LANES)
+// DEBUG: write the debug plane (the decode runs without it)
+template <bool DEBUG>
+__global__ void __launch_bounds__(32)
 gen_kernel(int32_t* __restrict__ events, int32_t* __restrict__ dbg,
-           int32_t* __restrict__ state, const uint32_t* __restrict__ words,
+           int32_t* __restrict__ state, const int32_t* __restrict__ words,
            const int32_t* __restrict__ tape, const int32_t* __restrict__ c0,
-           int W, int s_env, int S) {
-  __shared__ uint8_t ctx_plane[N_CTX * LANES];
-  __shared__ int32_t lv_plane[16 * LANES];
+           const int32_t* __restrict__ tbl,
+           const int32_t* __restrict__ sb_fwd,
+           const int32_t* __restrict__ sb_inv,
+           const int32_t* __restrict__ co_fwd,
+           const int32_t* __restrict__ co_inv,
+           const int32_t* __restrict__ sig4, int n_lanes, int W, int s_env,
+           int S) {
+  __shared__ int4 tbl4[64];
+  __shared__ int32_t scans[SCAN_WORDS];
+  __shared__ int32_t ctx_s[CTX_ROWS];
+  __shared__ int32_t lv_s[LV_ROWS];
+  // the warp's rings: stream words, envelope tape, events, debug words
+  __shared__ int32_t rings[2 * RING + 2 * BLOCK];
+  block_copy(reinterpret_cast<int32_t*>(tbl4), tbl, 256);
+  block_copy(scans + SB_FWD, sb_fwd, N_SB);
+  block_copy(scans + SB_INV, sb_inv, N_SB);
+  block_copy(scans + CO_FWD, co_fwd, N_CO);
+  block_copy(scans + CO_INV, co_inv, N_CO);
+  if (threadIdx.x == 0)
+    scans[SB_INV - 1] = scans[CO_FWD - 1] = scans[CO_INV - 1] =
+        scans[SCAN_WORDS - 1] = 0;
+  __syncthreads();
   const int lane = threadIdx.x;
-  const size_t b = blockIdx.x;
-  uint8_t* ctx = ctx_plane + lane;
-  const int32_t* c0b = c0 + b * N_CTX * LANES + lane;
-  for (int s = 0; s < N_CTX; ++s) ctx[s * LANES] = (uint8_t)c0b[s * LANES];
+  const Scans T = {scans + SB_FWD, scans + SB_INV, scans + CO_FWD,
+                   scans + CO_INV, __ldg(sig4), __ldg(sig4 + 1)};
+  // warps take the lanes from the last (the batches are sorted by length)
+  const int gl = n_lanes - 1 - blockIdx.x;
+  const size_t b = gl / LANES;
+  const int col = gl % LANES;
+  const WarpCtx ctx{ctx_s}, lv{lv_s};
+  for (int s = lane; s < LV_ROWS; s += 32) lv.set_own(s, 0);
+  load_contexts(ctx, c0 + b * N_CTX * LANES + col, lane);
 
-  const uint32_t* col = words + b * (size_t)W * LANES + lane;
-  const int32_t* tape_col = tape + b * (size_t)s_env * LANES + lane;
+  WarpRing wc, env;
+  wc.init(words + b * (size_t)W * LANES + col, W, lane, rings);
+  env.init(tape + b * (size_t)s_env * LANES + col, s_env, lane, rings + RING);
+  const size_t base = b * (size_t)S * LANES + col;
+  WarpOut ev_out, dbg_out;
+  ev_out.init(events + base, lane, rings + 2 * RING);
+  dbg_out.init(dbg ? dbg + base : nullptr, lane, rings + 2 * RING + BLOCK);
   Lane g = {};
-  engine_start(g.e, col, W, 0);
+  engine_start(g.e, wc, 0);
   g.phase = P_TAPE;
-  const size_t base = b * (size_t)S * LANES + lane;
-  for (int t = 0; t < S; ++t) {
-    const size_t i = base + (size_t)t * LANES;
-    events[i] = gen_step(g, ctx, lv_plane + lane, col, W, tape_col, s_env,
-                         dbg ? dbg + i : nullptr);
+  int32_t entry = env.get(0), entry_next = env.get(1);  // rows tptr, tptr+1
+  int t = 0;
+  bool finished = false;
+  for (int t0 = 0; t0 < S && !finished; t0 += BLOCK) {
+    const int m = min(BLOCK, S - t0);
+    // a step moves tptr by at most 1
+    env.advance(g.tptr + 1 + BLOCK);
+    wc.advance(block_last_word(g.e.wi));
+    for (; t < t0 + m; ++t) {
+      finished = g.phase == P_TAPE && (entry & 7) == KIND_PAD;
+      if (finished) break;
+      const int tptr = g.tptr;
+      int32_t d;
+      ev_out.put(t, gen_step(g, ctx, lv, tbl4, T, wc, entry, s_env, d));
+      if (DEBUG) dbg_out.put(t, d);
+      if (g.tptr != tptr) {
+        entry = entry_next;
+        entry_next = env.get(g.tptr + 1);
+      }
+    }
+    ev_out.store(t0, t - t0);
+    dbg_out.store(t0, t - t0);
   }
-  int32_t* out = state + b * N_CTX * LANES + lane;
-  for (int s = 0; s < N_CTX; ++s) out[s * LANES] = ctx[s * LANES];
+  // a finished lane's every later step: no move, event 0, the PAD
+  // request's debug word (bin = the terminate comparison)
+  const int bin = g.e.off >= wsub(g.e.rng, 2);
+  ev_out.fill(t, S, 0);
+  dbg_out.fill(t, S, KIND_PAD | shl(srl(entry, 3), 3) | (bin << 12) |
+                         (P_TAPE << 16));
+  store_contexts(ctx, state + b * N_CTX * LANES + col, lane);
 }
 
 }  // namespace
@@ -591,28 +649,11 @@ int heif_cabac_gen(int32_t* events, int32_t* dbg, int32_t* state,
                    const int32_t* co_fwd, const int32_t* co_inv,
                    const int32_t* sig4, int B, int W, int s_env, int S,
                    cudaStream_t stream) {
-  const cudaMemcpyKind d2d = cudaMemcpyDeviceToDevice;
-  cudaError_t err = upload_tbl(tbl, stream);
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbolAsync(c_sb_fwd, sb_fwd, sizeof(c_sb_fwd), 0, d2d,
-                                  stream);
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbolAsync(c_sb_inv, sb_inv, sizeof(c_sb_inv), 0, d2d,
-                                  stream);
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbolAsync(c_co_fwd, co_fwd, sizeof(c_co_fwd), 0, d2d,
-                                  stream);
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbolAsync(c_co_inv, co_inv, sizeof(c_co_inv), 0, d2d,
-                                  stream);
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbolAsync(c_sig4, sig4, sizeof(c_sig4), 0, d2d,
-                                  stream);
-  if (err != cudaSuccess) return (int)err;
+  auto kernel = dbg ? gen_kernel<true> : gen_kernel<false>;
   if (B > 0)
-    gen_kernel<<<B, LANES, 0, stream>>>(
-        events, dbg, state, reinterpret_cast<const uint32_t*>(words), tape,
-        c0, W, s_env, S);
+    kernel<<<B * LANES, 32, 0, stream>>>(
+        events, dbg, state, words, tape, c0, tbl, sb_fwd, sb_inv, co_fwd,
+        co_inv, sig4, B * LANES, W, s_env, S);
   return (int)cudaGetLastError();
 }
 

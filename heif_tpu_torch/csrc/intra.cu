@@ -85,6 +85,8 @@ constexpr int THREADS = WARPS * 32;
 constexpr int SRC_REGS = (N_REF + 31) / 32;  // 5 source indices a lane
 constexpr int RES_REGS = 2;                  // residual samples a lane
 constexpr int DONE = 0x7fffffff;             // a finished unit's progress
+// returned when the unit table does not fit in a block's shared memory
+constexpr int ERR_SMEM = -1;
 
 // intraPredAngle by mode (modes 0, 1 unused), Table 8-4
 __constant__ int c_angle[35] = {
@@ -380,9 +382,31 @@ int launch(const PlaneSet& ps, const void* steps, const void* src,
   if (n <= 0) return 0;
   const size_t smem = (size_t)(U > 0 ? U : 1) * sizeof(int);
   auto kernel = intra_walk<NP, LUMA>;
-  if (smem > 32 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the unit counters are dynamic shared memory beside the kernel's static
+  // refs_smem / fref_smem: past 48 KB in all, the block must opt in, and
+  // past the device's opt-in limit it cannot launch. The static size is a
+  // property of the compiled kernel: read once per instance.
+  struct StaticSmem {
+    cudaError_t err;
+    size_t bytes;
+  };
+  static const StaticSmem stat = [] {
+    cudaFuncAttributes attr{};
+    const cudaError_t err = cudaFuncGetAttributes(&attr, intra_walk<NP, LUMA>);
+    return StaticSmem{err, attr.sharedSizeBytes};
+  }();
+  if (stat.err != cudaSuccess) return static_cast<int>(stat.err);
+  const size_t total = stat.bytes + smem;
+  if (total > 48 * 1024) {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (total > (size_t)optin) return ERR_SMEM;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kernel<<<n, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -400,7 +424,9 @@ extern "C" {
 // the caller; res / pcm: [n, HR, WR] int32 (pcm may be null); steps:
 // [n, S, 6] int32; src: [n, S, 130] uint8; counts: [n] int32; units:
 // [n, U, 5] int32 (ops/intra.py:unit_table at ctb_log2, the luma CTB
-// size). Returns cudaGetLastError() after the launch on `stream`.
+// size). Returns cudaGetLastError() after the launch on `stream`, or -1
+// (no launch) when the U unit counters and the kernel's static shared
+// memory exceed what a block may use.
 int heif_intra_luma(void* plane, const void* res, const void* pcm,
                     const void* steps, const void* src, const void* counts,
                     const void* units, int n, int S, int U, int HP, int WP,

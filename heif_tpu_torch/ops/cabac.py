@@ -647,6 +647,35 @@ def replay_windowed_image(entries, blk: int = 256, device=None):
     return results
 
 
+def longest_lane(entries) -> int:
+    """Steps of the longest lane of a replay of (rbsp, TraceSegment)
+    entries: its bins. A replay's time is that lane's chain."""
+    return max((s.n_bins for _, s in entries), default=0)
+
+
+def stream_bytes(seg, n_bins: int) -> int:
+    """Bytes of a substream that its first n_bins bins consume (the host
+    decoder's bit position after the last of them)."""
+    if n_bins <= 0:
+        return 0
+    return -(-(int(seg.positions[n_bins - 1]) - 8 * seg.byte_start) // 8)
+
+
+def replay_bytes(entries, state_words: int, blk: int = 0) -> int:
+    """The bytes a replay of (rbsp, TraceSegment) entries must move,
+    padding not counted: per lane its steps (kind and slot read, bin
+    written), its state_words of context state read and written once and
+    the stream bytes its bins consume; with blk (the windowed replay) also
+    the bit offset of each block of blk steps."""
+    total = 0
+    for _, s in entries:
+        k = s.n_bins
+        total += 12 * k + 2 * 4 * state_words + stream_bytes(s, k)
+        if blk:
+            total += 4 * -(-k // blk)
+    return total
+
+
 def cuda_ms(fn, reps: int, device="cuda") -> float:
     """Mean device time of fn() over `reps` runs, by CUDA events, after
     one warm-up run. A device without CUDA events (the CPU) raises: a

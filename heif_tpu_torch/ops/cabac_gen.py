@@ -55,6 +55,7 @@ from heif_tpu_torch.ops.cabac import (
     shl,
     srl,
     stack_batches,
+    stream_bytes,
     table_row,
     to_lanes,
 )
@@ -729,6 +730,25 @@ def gen_image(entries, blk: int = 512, device=None):
                 ((state[bi, :, lane] >> 6) & 1).astype(np.uint8),
             )
     return results
+
+
+def longest_lane(entries) -> int:
+    """Steps of the longest lane of a generator run over (rbsp, seg,
+    tape, n_steps, ...) entries: its n_steps. The kernel's time is that
+    lane's chain; the lane has finished after it."""
+    return max((e[3] for e in entries), default=0)
+
+
+def gen_bytes(entries, debug: bool = False) -> int:
+    """The bytes a generator run of whole lanes must move, padding not
+    counted: per lane its n_steps event words (and debug words), its
+    context state read and written once, the envelope tape rows it reads
+    (every entry and the KIND_PAD row after them) and the stream bytes its
+    bins consume."""
+    per_step = 8 if debug else 4
+    return sum(per_step * ns + 2 * 4 * N_CTX + 4 * (tape.size + 1)
+               + stream_bytes(seg, seg.n_bins)
+               for _, seg, tape, ns, *_ in entries)
 
 
 def bench_gen_image(entries, blk: int = 512, reps: int = 3, device="cuda"):

@@ -118,6 +118,20 @@ def unit_table(steps: torch.Tensor, counts: torch.Tensor, *, ctb_log2: int,
     return Schedule(out[:, :n_units].contiguous(), ctb_log2)
 
 
+def pad_schedule(schedule: Schedule, n_units: int) -> Schedule:
+    """The schedule with empty units appended up to n_units a worklist
+    (k0 = k1 = 0, columns 0 and -1, wait -1: nothing to walk, nobody
+    waits on them), so the same walk runs against a larger unit table."""
+    units = schedule.units
+    extra = n_units - units.shape[1]
+    if extra < 0:
+        raise ValueError(f"{units.shape[1]} units > {n_units}")
+    empty = torch.tensor([0, 0, 0, -1, -1], dtype=units.dtype,
+                         device=units.device)
+    pad = empty.expand(units.shape[0], extra, UNIT_FIELDS)
+    return schedule._replace(units=torch.cat([units, pad], dim=1))
+
+
 def _check(name, t, dtype, shape, device):
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
@@ -158,7 +172,15 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _raise_on(rc: int, name: str):
+_ERR_SMEM = -1  # csrc/intra.cu: the unit table does not fit
+
+
+def _raise_on(rc: int, name: str, n_units: int):
+    if rc == _ERR_SMEM:
+        raise RuntimeError(
+            f"{name}: a unit table of {n_units} units does not fit in the "
+            "shared memory a block may use (its counters beside the "
+            "kernel's own, at most 227 KB on an H100)")
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
@@ -191,7 +213,7 @@ def intra_scan_luma(res, steps, src, counts, pcm=None, *, h: int, w: int,
         res.shape[2], bd, int(bool(strong_smoothing)), schedule.ctb_log2,
         torch.cuda.current_stream(res.device).cuda_stream,
     )
-    _raise_on(rc, "heif_intra_luma")
+    _raise_on(rc, "heif_intra_luma", units.shape[1])
     LAUNCHES["luma"] += 1
     return plane[:, 1 : 1 + h, 1 : 1 + w]
 
@@ -222,7 +244,7 @@ def intra_scan_chroma2(res_cb, res_cr, steps, src, counts, pcm_cb=None,
         cb.shape[1], cb.shape[2], res_cb.shape[1], res_cb.shape[2], bd,
         schedule.ctb_log2, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(rc, "heif_intra_chroma2")
+    _raise_on(rc, "heif_intra_chroma2", units.shape[1])
     LAUNCHES["chroma"] += 1
     return cb[:, 1 : 1 + h, 1 : 1 + w], cr[:, 1 : 1 + h, 1 : 1 + w]
 

@@ -1,6 +1,7 @@
 """Decode observability (port of heif_tpu/utils/profiling.py):
-DecodeStats, the per-stage timings (a copy of heif_tpu's), and
-device_trace, behind the CLI's `decode --trace`.
+DecodeStats, the per-stage timings (a copy of heif_tpu's),
+device_trace, behind the CLI's `decode --trace`, and the card's
+nvidia-smi readings that measurements print beside their times.
 
 heif_tpu wraps the decode in jax.profiler.trace(logdir); here it is
 torch.profiler, writing a TensorBoard-readable Chrome trace
@@ -17,7 +18,9 @@ import contextlib
 import glob
 import json
 import os
+import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -100,6 +103,28 @@ class DecodeStats:
         if self.tile_errors:
             parts.append(f"{self.tile_errors}/{self.tiles} tiles FAILED")
         return "  ".join(parts)
+
+
+def nvidia_smi(query: str) -> str:
+    """The first card's `nvidia-smi --query-gpu=<query>
+    --format=csv,noheader` line, e.g. query "name,power.limit"."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz(fn) -> float:
+    """The SM clock (nvidia-smi clocks.sm, MHz) sampled while fn() runs
+    on the card back to back: the clock its kernels ran at."""
+    import torch
+
+    with ThreadPoolExecutor(1) as pool:
+        line = pool.submit(nvidia_smi, "clocks.sm")
+        while not line.done():
+            fn()
+            torch.cuda.synchronize()
+        return float(line.result().split()[0])  # "1980 MHz"
 
 
 @dataclass

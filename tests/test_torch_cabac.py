@@ -7,6 +7,10 @@
 - the plain replay (the CPU path of the kernel wrappers) vs the Pallas
   kernels in interpret mode, on prefixes of tile 0's 16 WPP substreams of
   the flagship image: whole bin and state planes, pad region included;
+- the plain replay vs the Pallas kernel on the seeded contract inputs
+  of utils.cabac_fuzz (the card tests hold the kernel to the plain
+  replay on the same inputs); the longest-lane and byte counts that
+  chip_smoke.py prints;
 - the plain replay over tile 0's full streams vs the host trace golden;
 - on a CUDA card only: the CUDA kernels vs the plain versions.
 """
@@ -24,6 +28,7 @@ from heif_tpu.ops import pallas_cabac as PC
 from heif_tpu.ops import pallas_cabac_gen as PG
 from heif_tpu_torch.ops import cabac as C
 from heif_tpu_torch.tables import CABAC_SHAPES, CabacTables
+from heif_tpu_torch.utils import cabac_fuzz as F
 
 
 @pytest.fixture(scope="module")
@@ -219,6 +224,77 @@ def test_replay_windowed_image_batches_match_pallas(traced):
                 np.testing.assert_array_equal(got[i][0], e[1].bins)
                 np.testing.assert_array_equal(got[i][1], state[:, lane] & 63)
                 np.testing.assert_array_equal(got[i][2], state[:, lane] >> 6)
+
+
+@pytest.mark.parametrize("case", F.CASES + (F.LONG_REPLAY,))
+def test_replay_plain_matches_pallas_on_fuzz(case):
+    """The seeded contract inputs the card tests hold the kernel to
+    (utils.cabac_fuzz): ragged lanes, KIND_PAD and other kinds mid-tape,
+    slots outside [0, 136), reads past the words (the long case: after
+    reading through 100 words). The plain replay (the card tests' oracle)
+    equals the Pallas kernel on them."""
+    words, c0, kinds, slots = F.replay_inputs(*case)
+    S = case[2]
+    mid = kinds[:, : S // 2]
+    assert (mid == KIND_PAD).any() and ((mid < 0) | (mid > KIND_PAD)).any()
+    assert ((slots < 0) | (slots >= C.N_CTX)).any()
+    bins, state = C.cabac_replay_batches(words, c0, kinds, slots, blk=S,
+                                         device="cpu")
+    jbins, jstate = PC.cabac_replay_batches(words, c0, kinds, slots, blk=S,
+                                            interpret=True)
+    np.testing.assert_array_equal(bins, jbins)
+    np.testing.assert_array_equal(state, jstate)
+
+
+def _final_word_index(case) -> np.ndarray:
+    """Each fuzz lane's word index after its tape: replay_plain's loop,
+    reading the engine at the end."""
+    words, c0, kinds, slots = (torch.from_numpy(a)
+                               for a in F.replay_inputs(*case))
+    tbl = C.cabac_tables_on("cpu").tbl
+    w, ctx = C.to_lanes(words), C.to_lanes(c0).clone()
+    ks, ss = C.to_lanes(kinds), C.to_lanes(slots)
+    lane = torch.arange(w.shape[1])
+    eng = C.Engine(w, torch.zeros_like(lane, dtype=torch.int32))
+    for t in range(ks.shape[0]):
+        c, row, ok = C.ctx_read(ctx, ss[t], lane)
+        _, c_new, is_ctx = eng.decode(w, ks[t], c, *C.table_row(tbl, c, eng.rng))
+        ctx[row, lane] = torch.where(is_ctx & ok, c_new, ctx[row, lane])
+    return eng.wi.numpy()
+
+
+def test_replay_fuzz_reads_past_the_words():
+    """Many fuzz lanes consume more bits than their words hold."""
+    assert int((_final_word_index(F.CASES[0]) >= 2).sum()) >= 16
+
+
+def test_replay_long_fuzz_slides_past_the_words():
+    """The long fuzz case reaches every side of the end of its 100 words
+    through the kernel's word ring, which slides at words 53, 85, 117:
+    lanes that end before the first slide, lanes whose first slide loads
+    rows across the end, and lanes that slide past it twice and three
+    times."""
+    wi = _final_word_index(F.LONG_REPLAY)
+    assert F.LONG_REPLAY[3] == 100
+    for lo, hi in ((0, 53), (53, 85), (85, 117), (117, 1 << 20)):
+        assert int(((wi >= lo) & (wi < hi)).sum()) >= 16, (lo, hi)
+
+
+def test_longest_lane_counts(traced):
+    rbsp, segs = traced
+    entries = [(rbsp, _truncate(s, 40 + 3 * i)) for i, s in enumerate(segs)]
+    assert C.longest_lane(entries) == 40 + 3 * 15
+    packed = C.pack_sorted_batches(entries, blk=32)
+    assert C.longest_lane(entries) == max(
+        int((b["kinds"] != KIND_PAD).sum(0).max()) for b in packed)
+    # the bytes a replay of them must move: each lane's steps (kind,
+    # slot, bin), its state in and out, and the stream bytes it consumes
+    want = sum(12 * s.n_bins + 2 * 4 * C.N_CTX + C.stream_bytes(s, s.n_bins)
+               for _, s in entries)
+    assert C.replay_bytes(entries, C.N_CTX) == want
+    assert C.replay_bytes(entries, C.N_CTXP, blk=64) == want - sum(
+        2 * 4 * (C.N_CTX - C.N_CTXP) - 4 * -(-s.n_bins // 64)
+        for _, s in entries)
 
 
 # --------------------------------------------------------------------------

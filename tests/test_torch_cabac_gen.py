@@ -6,6 +6,9 @@ tolerance 0).
 - the plain generator (the CPU path of the kernel wrapper) vs the Pallas
   kernel in interpret mode on flagship tile 0, steps capped at 256: the
   whole event, debug and state planes;
+- the plain generator vs the Pallas kernel on the seeded contract
+  inputs of utils.cabac_fuzz (every phase, lanes that finish early);
+  the longest-lane and byte counts that chip_smoke.py prints;
 - the plain generator over tile 0 in full vs the host decoder's
   coefficient planes and final contexts (no JAX);
 - the slot bases written into csrc/cabac_gen.cu vs cabac.engine;
@@ -15,18 +18,22 @@ tolerance 0).
 import re
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from heif_tpu.cabac import engine as E
-from heif_tpu.cabac.envelope import build_envelope_tape, envelope_trace
+from heif_tpu.cabac.trace import KIND_PAD
+from heif_tpu.cabac.envelope import KIND_TU, build_envelope_tape, envelope_trace
 from heif_tpu.container.reader import HeifReader
 from heif_tpu.hevc import params
 from heif_tpu.hevc import slice as sl
 from heif_tpu.hevc.rbsp import remove_emulation_prevention
 from heif_tpu.ops import pallas_cabac_gen as PG
+from heif_tpu_torch.ops import cabac as C
 from heif_tpu_torch.ops import cabac_gen as G
+from heif_tpu_torch.utils import cabac_fuzz as F
 
 ROOT = Path(__file__).resolve().parents[1]
 CAP = 256  # steps of the interpret-mode comparison
@@ -93,6 +100,51 @@ def test_gen_plain_matches_pallas(tile0):
     np.testing.assert_array_equal(dbg, jdbg)
     np.testing.assert_array_equal(state, jstate)
     assert (ev != 0).any() and ((ev >> 31) & 1).any()  # coefficients seen
+
+
+@pytest.mark.parametrize("case", F.CASES)
+def test_gen_plain_matches_pallas_on_fuzz(case):
+    """The seeded contract inputs the card tests hold the kernel to
+    (utils.cabac_fuzz): random TU descriptors of every legal kind, lanes
+    of very different lengths. The plain generator (the card tests'
+    oracle) equals the Pallas kernel (interpret mode) on the whole event,
+    debug and state planes; every phase is reached, and lanes finish (a
+    KIND_PAD entry in P_TAPE) at different steps before the end."""
+    seed, B, S = case
+    words, tape, c0 = F.gen_inputs(*case)
+    ev, dbg, state = G.gen(*(torch.from_numpy(a) for a in (words, tape, c0)),
+                           S, debug=True)
+    blk = 64 if S % 64 == 0 else 40
+    call = jax.jit(PG._gen_call(B, words.shape[1], tape.shape[1], S, blk, True))
+    jev, jdbg, jstate = call(PG._tbl_device(), PG._sbtab_device(),
+                             PG._cotab_device(), words, tape, c0)
+    np.testing.assert_array_equal(ev.numpy(), np.asarray(jev))
+    np.testing.assert_array_equal(dbg.numpy(), np.asarray(jdbg))
+    np.testing.assert_array_equal(state.numpy(), np.asarray(jstate))
+    dbg = dbg.numpy()
+    # the phase of the steps whose slot leaves the debug word's other
+    # fields alone (every generated request's does)
+    clean = (dbg >= 0) & (dbg >> 20 == 0) & ((dbg >> 3) & 511 < C.N_CTX)
+    assert set(np.unique(dbg[clean] >> 16)) == set(range(G.P_FLUSH + 1))
+    # a finished lane's steps: P_TAPE, a KIND_PAD entry, slot 0
+    done = (dbg & ~(1 << 12)) == KIND_PAD
+    first = np.where(done.any(1), done.argmax(1), S)  # [B, 128]
+    assert len(np.unique(first[first < S])) > 20 and (first == S).any()
+    assert ((ev.numpy() >> 31) & 1).any()  # coefficients emitted
+    descs = (tape >> 3)[(tape & 7) == KIND_TU]
+    assert set(descs.tolist()) == set(F.tu_descriptors())
+
+
+def test_longest_lane_and_finished_lanes(tile0, full_run):
+    """G.longest_lane is the largest n_steps, and a lane's events are 0
+    after its n_steps (it has finished); gen_bytes counts a debug word a
+    step more with debug."""
+    _, entries = tile0
+    assert G.longest_lane(entries) == max(e[3] for e in entries)
+    for e, (ev, _, _) in zip(entries, full_run):
+        assert not ev[e[3]:].any() and ev[: e[3]].any()
+    assert (G.gen_bytes(entries, debug=True) - G.gen_bytes(entries)
+            == 4 * sum(e[3] for e in entries))
 
 
 def test_gen_plain_full_tile_matches_host_decode(tile0, full_run):

@@ -11,6 +11,10 @@ On a card (`cuda`-marked; each skips without one):
 - the replay, windowed replay and generator kernels vs their plain
   versions on flagship tile 1's 16 WPP substreams, cut to PREFIX bins
   (replays) or steps (generator);
+- the replay and generator kernels vs their plain versions on the seeded
+  contract inputs of utils.cabac_fuzz (tests/test_torch_cabac.py and
+  tests/test_torch_cabac_gen.py hold the plain versions against
+  heif_tpu's Pallas kernels on the same inputs);
 - decode_hevc(device="cuda") of flagship tile 1 as an Annex-B stream,
   with both entropy front ends, vs backend="ref".
 Anywhere: this file and every module of heif_tpu_torch import with jax
@@ -35,6 +39,7 @@ from heif_tpu_torch.ops import cabac as C
 from heif_tpu_torch.ops import cabac_gen as G
 from heif_tpu_torch.ops import intra as I
 from heif_tpu_torch.tools import image_slices
+from heif_tpu_torch.utils import cabac_fuzz as F
 from heif_tpu_torch.utils.annexb import tile_annexb
 from heif_tpu_torch.utils.synthetic import synthetic_batch
 
@@ -123,6 +128,34 @@ def test_gen_kernel_matches_plain(cuda, tile_traces):
     got = G.gen(*args, p["S_steps"], debug=True)
     assert G.LAUNCHES["gen"] == 1
     _same(got, G.gen_plain(*args, p["S_steps"], debug=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F.CASES)
+def test_cabac_kernels_match_plain_on_fuzz(cuda, case):
+    """The seeded contract inputs of utils.cabac_fuzz: ragged lanes,
+    KIND_PAD and unknown kinds mid-tape, slots outside [0, 136), reads
+    past the words (replay); TU descriptors of every kind and lanes that
+    finish at very different steps (generator)."""
+    S = case[2]
+    rargs = [C.as_tensor(a, cuda) for a in F.replay_inputs(*case)]
+    gargs = [C.as_tensor(a, cuda) for a in F.gen_inputs(*case)]
+    C.reset_launches()
+    G.reset_launches()
+    _same(C.replay(*rargs), C.replay_plain(*rargs))
+    _same(G.gen(*gargs, S, debug=True), G.gen_plain(*gargs, S, debug=True))
+    assert C.LAUNCHES["replay"] == 1 and G.LAUNCHES["gen"] == 1
+
+
+@pytest.mark.cuda
+def test_replay_kernel_matches_plain_on_long_fuzz(cuda):
+    """utils.cabac_fuzz.LONG_REPLAY: lanes read through their 100 words
+    and past them, so the kernel's word ring slides across the end of the
+    words and beyond it."""
+    args = [C.as_tensor(a, cuda) for a in F.replay_inputs(*F.LONG_REPLAY)]
+    C.reset_launches()
+    _same(C.replay(*args), C.replay_plain(*args))
+    assert C.LAUNCHES["replay"] == 1
 
 
 @pytest.mark.cuda

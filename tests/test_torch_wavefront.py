@@ -13,7 +13,8 @@ against the plain walk there). Here, on flagship tile 0, the synthetic
   the schedule has finished: earlier in the step's own unit, or in its
   wait unit at most one CTB column to the right of the step's;
 - with its waits removed the table gives another result (the check can
-  fail);
+  fail); padded with empty units (ops.intra.pad_schedule) it gives the
+  same;
 - each unit is one run of steps of one CTB row of one HEVC tile, and
   the units cover every real step once;
 - unit_table on hand-made worklists: padding steps, counts < S, HEVC
@@ -38,6 +39,7 @@ from heif_tpu_torch.utils.synthetic import synthetic_batch
 
 CPU = torch.device("cpu")
 KINDS = ("flagship0", "synthetic", "tiles", "tall")
+PADDED_UNITS = 8150  # chip_smoke.py's padded unit tables
 
 
 def _decoded(data: bytes):
@@ -161,6 +163,28 @@ def test_sources_lie_in_finished_ctbs(plans, kind):
                     checked += s.size
             assert covered == (steps[t, : counts[t], 2] > 0).sum()
     assert checked > 0
+
+
+@pytest.mark.parametrize("comp", [0, 1])
+@pytest.mark.parametrize("kind", KINDS)
+def test_empty_units_leave_the_walk_unchanged(plans, kind, comp):
+    """A unit table padded with empty units (ops.intra.pad_schedule, as
+    chip_smoke.py pads the kernels' tables to PADDED_UNITS, past 48 KB of
+    shared memory) schedules the same walk: nothing waits on an empty
+    unit and it walks nothing."""
+    bp, d, res, srcs = plans[kind]
+    sch = d["schedules"][min(comp, 1)]
+    padded = I.pad_schedule(sch, PADDED_UNITS)
+    n_units = sch.units.shape[1]
+    assert padded.units.shape == (sch.units.shape[0], PADDED_UNITS,
+                                  I.UNIT_FIELDS)
+    assert torch.equal(padded.units[:, :n_units], sch.units)
+    assert (padded.units[:, n_units:]
+            == torch.tensor([0, 0, 0, -1, -1], dtype=torch.int32)).all()
+    seq, wave = _walks(bp, d, res, srcs, comp, padded)
+    assert torch.equal(seq, wave)
+    with pytest.raises(ValueError):
+        I.pad_schedule(sch, n_units - 1)
 
 
 def test_schedule_without_waits_differs(plans):
