@@ -33,8 +33,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      clock sampled while the generator runs) and the byte bound;
   7. each CABAC kernel against its plain PyTorch version on the card, on
      the 768 streams cut to 2048 bins (replays) or 2048 steps (generator):
-     whole bin / event / debug / state planes; both times; then the
-     replay and the generator on the seeded contract inputs of
+     whole bin / event / debug / state planes; both times; then all
+     three on the seeded contract inputs of
      heif_tpu_torch/utils/cabac_fuzz.py, equal to their plain versions;
   8. the raw-HEVC slice: flagship tiles 1, 22 and 24 as Annex-B streams
      through HeicDecoder.decode_hevc(entropy="device-gen", device="cuda")
@@ -94,10 +94,9 @@ KERNEL_REPS = 20  # timed launches of each intra kernel (phase 3)
 # counters pass 48 KB of shared memory together with the kernel's own
 PADDED_UNITS = 8150
 UNFIT_UNITS = 60000  # 240,000 B of counters: more than a block may use
-# the CABAC kernels' full-flagship times, ms, before the replay and the
-# generator carried a substream a warp (PERF.md section 6; H100 80GB
-# HBM3, 700 W)
-EARLIER_CABAC_MS = {"replay": 35.816, "windowed": 34.656, "gen": 135.602}
+# the CABAC kernels' full-flagship times, ms, before each carried a
+# substream a warp (PERF.md section 6; H100 80GB HBM3, 700 W)
+EARLIER_CABAC_MS = {"replay": 35.816, "windowed": 25.034, "gen": 135.602}
 REPS = 3  # timed runs of each bulk path (phase 9)
 SCHEDULE_REPS = 20  # timed builds of a chunk's intra schedules (phase 9)
 BURST = 4  # images in the burst (phase 9)
@@ -517,16 +516,28 @@ def max_err(name, got, want) -> int:
 
 
 def check_fuzz(dev) -> dict:
-    """Phase 7: the replay and the generator against their plain versions
-    on the seeded contract inputs of utils.cabac_fuzz (ragged lanes,
+    """Phase 7: the three CABAC kernels against their plain versions on
+    the seeded contract inputs of utils.cabac_fuzz (ragged lanes,
     KIND_PAD and unknown kinds mid-tape, slots outside [0, 136), reads
-    past the words, through the word ring's slides too; TU descriptors of every kind, lanes that finish at
-    different steps). Returns the largest error of each."""
+    past the words, through the word ring's slides too; the windowed
+    replay's packed context bytes with bit 7 set and window ends inside
+    its 32-step blocks; TU descriptors of every kind, lanes that finish
+    at different steps). Returns the largest error of each."""
     from heif_tpu_torch.ops import cabac as C
     from heif_tpu_torch.ops import cabac_gen as G
     from heif_tpu_torch.utils import cabac_fuzz as F
 
-    out = {"replay": 0, "gen": 0}
+    out = {"replay": 0, "windowed": 0, "gen": 0}
+    for case in F.WINDOWED_CASES:
+        wargs = [C.as_tensor(a, dev) for a in F.windowed_inputs(*case)]
+        err = max_err(f"windowed fuzz {case}", C.replay_windowed(*wargs),
+                      C.replay_windowed_plain(*wargs))
+        print(f"[plain] windowed fuzz (seed, B, nb, blk, w_blk[, bypass]) = "
+              f"{case}: max_abs_err={err}")
+        if err:
+            raise SystemExit("windowed kernel disagrees with its plain "
+                             f"version on fuzz input {case}")
+        out["windowed"] = max(out["windowed"], err)
     for case in F.CASES:
         S = case[2]
         rargs = [C.as_tensor(a, dev) for a in F.replay_inputs(*case)]
@@ -1239,7 +1250,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": count,
-            "max_abs_err": max(plain[key]["max_abs_err"], fuzz.get(key, 0)),
+            "max_abs_err": max(plain[key]["max_abs_err"], fuzz[key]),
             "ms": plain[key]["ms"], "plain_ms": plain[key]["plain_ms"],
             "bound_ms": plain[key]["bound_ms"], "bound_by": "bytes",
             "library_ms": None, **golden[key],

@@ -20,19 +20,16 @@
 //   outside [0, N_CTX) reads it; a step that writes no slot writes its
 //   value to CTX_SCRATCH. So no context access branches.
 //
-// Where a lane's values come from and go to:
-// - WarpRing / WarpOut (the replay and the generator): a warp carries the
-//   lane, every thread running the same chain. Steps run in blocks of
-//   BLOCK. Before a block the warp slides each input's 64-row
-//   shared-memory ring by 32 rows if the block may need them, storing the
-//   rows it loaded at the slide before and loading the next 32, one a
-//   thread; so a row is loaded a block or more before it is read, and a
-//   step reads it with one shared-memory load. Outputs go to a 32-row
-//   ring that the warp stores after the block. No step branches on
-//   either. The lane's contexts are a shared-memory column the warp's
-//   threads load and store together (load_contexts, store_contexts).
-// - ThreadColumn (the windowed replay): a thread carries the lane and
-//   loads its own rows.
+// Where a lane's values come from and go to (WarpRing, WarpOut, WarpCtx):
+// a warp carries the lane, every thread running the same chain. Steps run
+// in blocks of BLOCK. Before a block the warp slides each input's 64-row
+// shared-memory ring by 32 rows if the block may need them, storing the
+// rows it loaded at the slide before and loading the next 32, one a
+// thread; so a row is loaded a block or more before it is read, and a
+// step reads it with one shared-memory load. Outputs go to a 32-row ring
+// that the warp stores after the block. No step branches on either. The
+// lane's contexts are a shared-memory column the warp's threads load and
+// store together (load_contexts, store_contexts).
 //
 // Contract points the Pallas kernels fix and this code keeps:
 // - words are big-endian bytes packed 4 to an int32, read with logical
@@ -46,6 +43,8 @@
 //   XLA; a shift past 31 gives 0.
 //
 // Context values are p | mps<<6 (7 bits), as the host packers build them.
+// The windowed replay's packed bytes carry an 8th bit that no step reads
+// or writes: the kernel keeps it aside (cabac.cu).
 
 #pragma once
 
@@ -103,18 +102,6 @@ __device__ __forceinline__ int block_last_word(int wi) {
   return wi + 2 + (BLOCK * 9 + 31) / 32;
 }
 
-// One lane's column of an int32 [rows][LANES] plane, read by the thread
-// that carries the lane (any row, in any order).
-struct ThreadColumn {
-  const int32_t* col;
-  int n;
-  __device__ void init(const int32_t* c, int rows) {
-    col = c;
-    n = rows;
-  }
-  __device__ int32_t get(int k) { return load_row(col, n, k); }
-};
-
 // One lane's column read by the warp that carries it, through a RING-row
 // ring in the warp's shared memory holding rows [base, base + RING).
 // advance(kmax), before a block, slides the ring until it holds kmax; the
@@ -161,11 +148,13 @@ struct WarpOut {
     ring = r;
   }
   __device__ void put(int t, int32_t v) { ring[t & (BLOCK - 1)] = v; }
-  // store steps [t0, t0 + m) of a block
+  // store steps [t0, t0 + m) of a block (t0 need not be a multiple of
+  // BLOCK: the windowed replay's blocks start at its windows' starts)
   __device__ void store(int t0, int m) {
     if (!col) return;
     __syncwarp();
-    if (lane < m) col[(size_t)(t0 + lane) * LANES] = ring[lane];
+    const int t = t0 + lane;
+    if (lane < m) col[(size_t)t * LANES] = ring[t & (BLOCK - 1)];
     __syncwarp();
   }
   // steps [t, n) all equal v
@@ -175,23 +164,19 @@ struct WarpOut {
   }
 };
 
-// A lane's values in shared memory: slot s at p[s * STRIDE]. STRIDE 1: a
-// lane a warp carries, every thread reading and writing the same word; a
-// write first waits for the warp, so no thread overwrites a word another
-// has yet to read. STRIDE LANES: a thread a lane, lane on the fast axis,
-// so a warp's accesses fall in distinct banks.
-template <typename T, int STRIDE>
-struct SmemColumn {
-  T* p;
-  __device__ int get(int s) const { return p[s * STRIDE]; }
+// A lane's context rows in the shared memory of the warp that carries it,
+// every thread reading and writing the same word; a write first waits for
+// the warp, so no thread overwrites a word another has yet to read.
+struct WarpCtx {
+  int32_t* p;
+  __device__ int get(int s) const { return p[s]; }
   __device__ void set(int s, int v) const {
-    if (STRIDE == 1) __syncwarp();
-    p[s * STRIDE] = (T)v;
+    __syncwarp();
+    p[s] = v;
   }
   // a write of a row that this thread alone writes (no wait)
-  __device__ void set_own(int s, int v) const { p[s * STRIDE] = (T)v; }
+  __device__ void set_own(int s, int v) const { p[s] = v; }
 };
-using WarpCtx = SmemColumn<int32_t, 1>;
 
 // a warp's lane's context rows from its c0 column (stride LANES): the
 // N_CTX slots, CTX_ZERO = 0, a row a thread
@@ -222,8 +207,8 @@ struct Engine {
 };
 
 // consume n (0..9) bits MSB-first from the funnel
-template <class Col>
-__device__ __forceinline__ int32_t read_bits(Engine& e, Col& words, int n) {
+__device__ __forceinline__ int32_t read_bits(Engine& e, WarpRing& words,
+                                             int n) {
   // the 32 bits from the read position, then their first n (0 for n = 0)
   const uint32_t top = __funnelshift_l(e.nxt, e.cur, e.biw);
   const int32_t v = (int32_t)__funnelshift_l(top, 0u, n);
@@ -239,8 +224,7 @@ __device__ __forceinline__ int32_t read_bits(Engine& e, Col& words, int n) {
 }
 
 // anchor the bit reader at bit biw of word 0 of a (new) word column
-template <class Col>
-__device__ __forceinline__ void rebase(Engine& e, Col& words, int biw) {
+__device__ __forceinline__ void rebase(Engine& e, WarpRing& words, int biw) {
   e.wi = 0;
   e.biw = biw;
   e.cur = (uint32_t)words.get(0);
@@ -249,8 +233,8 @@ __device__ __forceinline__ void rebase(Engine& e, Col& words, int biw) {
 }
 
 // engine start (§9.3.4.3.1): range 510, offset = the first 9 bits
-template <class Col>
-__device__ __forceinline__ void engine_start(Engine& e, Col& words, int biw) {
+__device__ __forceinline__ void engine_start(Engine& e, WarpRing& words,
+                                             int biw) {
   rebase(e, words, biw);
   e.rng = 510;
   e.off = read_bits(e, words, 9);
@@ -264,12 +248,10 @@ __device__ __forceinline__ int renorm_shift(int32_t r) {
 // The context value of slot s (0 outside [0, N_CTX)) and the write of
 // a step's new value (to CTX_SCRATCH unless a KIND_CTX step on a slot
 // inside [0, N_CTX)).
-template <class Ctx>
-__device__ __forceinline__ int ctx_read(const Ctx& ctx, int s) {
+__device__ __forceinline__ int ctx_read(const WarpCtx& ctx, int s) {
   return ctx.get(ctx_row(s));
 }
-template <class Ctx>
-__device__ __forceinline__ void ctx_write(const Ctx& ctx, int kind, int s,
+__device__ __forceinline__ void ctx_write(const WarpCtx& ctx, int kind, int s,
                                           int v) {
   ctx.set(ctx_wrow(kind, ctx_row(s)), v);
 }
@@ -278,9 +260,8 @@ __device__ __forceinline__ void ctx_write(const Ctx& ctx, int kind, int s,
 // slot's value, 0 for a slot outside [0, N_CTX)). Returns the bin; c_new
 // is the slot's next value, which counts only for a KIND_CTX request on
 // a slot inside [0, N_CTX) (ctx_write).
-template <class Col>
 __device__ __forceinline__ int decode_bin(Engine& e, int kind, int c,
-                                          const int4* tbl4, Col& words,
+                                          const int4* tbl4, WarpRing& words,
                                           int& c_new) {
   const int p = c & 63, mps = srl(c, 6);
   // context path (§9.3.4.3.2)

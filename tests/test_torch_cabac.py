@@ -7,9 +7,10 @@
 - the plain replay (the CPU path of the kernel wrappers) vs the Pallas
   kernels in interpret mode, on prefixes of tile 0's 16 WPP substreams of
   the flagship image: whole bin and state planes, pad region included;
-- the plain replay vs the Pallas kernel on the seeded contract inputs
-  of utils.cabac_fuzz (the card tests hold the kernel to the plain
-  replay on the same inputs); the longest-lane and byte counts that
+- the plain replay and windowed replay vs the Pallas kernels on the
+  seeded contract inputs of utils.cabac_fuzz (the card tests hold the
+  kernels to the plain versions on the same inputs), bit 7 of the packed
+  context bytes kept; the longest-lane and byte counts that
   chip_smoke.py prints;
 - the plain replay over tile 0's full streams vs the host trace golden;
 - on a CUDA card only: the CUDA kernels vs the plain versions.
@@ -278,6 +279,109 @@ def test_replay_long_fuzz_slides_past_the_words():
     assert F.LONG_REPLAY[3] == 100
     for lo, hi in ((0, 53), (53, 85), (85, 117), (117, 1 << 20)):
         assert int(((wi >= lo) & (wi < hi)).sum()) >= 16, (lo, hi)
+
+
+def _windowed_pallas(args):
+    """heif_tpu's Pallas windowed kernel in interpret mode on [B, ...]
+    numpy inputs of utils.cabac_fuzz.windowed_inputs, one batch a call."""
+    windows, biw0, c0p, kinds, slots = args
+    B, nb, w_blk = windows.shape[:3]
+    call = PC._windowed_call(nb, w_blk, kinds.shape[1] // nb, True)
+    outs = [call(PC._tbl_device_packed(), windows[b][None],
+                 biw0[b][None, :, None], c0p[b][None], kinds[b][None],
+                 slots[b][None]) for b in range(B)]
+    return tuple(np.concatenate([np.asarray(o[i]) for o in outs])
+                 for i in range(2))
+
+
+@pytest.mark.parametrize("case", F.WINDOWED_CASES)
+def test_replay_windowed_plain_matches_pallas_on_fuzz(case):
+    """The windowed replay's seeded contract inputs (utils.cabac_fuzz):
+    packed context bytes with bit 7 set, ragged lanes, KIND_PAD and other
+    kinds mid-tape, slots outside [0, 136) (136-139 included), windows
+    read past their end, blk not a multiple of 32 or long enough to slide
+    the kernel's word ring inside a window. The plain version (the card
+    tests' oracle) equals the Pallas kernel on them, bins and packed state
+    at tolerance 0."""
+    args = F.windowed_inputs(*case)
+    _, _, c0p, kinds, slots = args
+    mid = kinds[:, : kinds.shape[1] // 2]
+    assert (mid == KIND_PAD).any() and ((mid < 0) | (mid > KIND_PAD)).any()
+    assert (slots < 0).any() and ((slots >= C.N_CTX) & (slots < C.N_CTX + 4)).any()
+    assert int(np.count_nonzero(c0p & np.int32(-0x7F7F7F80))) > c0p.size // 2
+    bins, state = C.replay_windowed(*(torch.from_numpy(a) for a in args))
+    jbins, jstate = _windowed_pallas(args)
+    np.testing.assert_array_equal(bins.numpy(), jbins)
+    np.testing.assert_array_equal(state.numpy(), jstate)
+
+
+def test_replay_windowed_plain_keeps_bit7():
+    """Bit 7 of every packed context byte passes through, as in the Pallas
+    kernel: a context write changes only the byte's low 7 bits."""
+    args = F.windowed_inputs(*F.WINDOWED_CASES[0])
+    c0p = args[2]
+    _, state = C.replay_windowed(*(torch.from_numpy(a) for a in args))
+    state = state.numpy()
+    hi = np.int32(-0x7F7F7F80)  # 0x80808080
+    np.testing.assert_array_equal(state & hi, c0p & hi)
+    assert int(np.count_nonzero(c0p & hi)) > c0p.size // 2
+    # and the low bits were written: contexts moved in many words
+    assert int(np.count_nonzero((state ^ c0p) & ~hi)) > c0p.size // 4
+
+
+def _windowed_word_index(case) -> np.ndarray:
+    """[nb*blk, lanes] word index of each fuzz lane after each step:
+    replay_windowed_plain's loop, reading the engine at every step."""
+    windows, biw0, c0p, kinds, slots = (torch.from_numpy(a)
+                                        for a in F.windowed_inputs(*case))
+    nb, blk = windows.shape[1], kinds.shape[1] // windows.shape[1]
+    tw = C.cabac_tables_on("cpu").tbl_win
+    ctx = C.to_lanes(c0p).clone()
+    ks, ss = C.to_lanes(kinds), C.to_lanes(slots)
+    lane = torch.arange(ctx.shape[1])
+    out = []
+    for k in range(nb):
+        win = C.to_lanes(windows[:, k])
+        biw = C.to_lanes(biw0[:, k : k + 1])[0]
+        if k == 0:
+            eng = C.Engine(win, biw)
+        else:
+            eng.rebase(win, biw)
+        for t in range(k * blk, (k + 1) * blk):
+            cword, row, ok = C.ctx_read(ctx, C.srl(ss[t], 2), lane)
+            csh = (ss[t] & 3) << 3
+            c = C.srl(cword, csh) & 127
+            q = C.srl(eng.rng, 6) & 3
+            ta, tb = tw[(c & 63).long()], tw[(64 + (c & 63)).long()]
+            _, c_new, is_ctx = eng.decode(win, ks[t], c, C.srl(ta, q << 3) & 255,
+                                          tb & 255, C.srl(tb, 8) & 255)
+            word = (cword & ~(127 << csh)) | (c_new << csh)
+            ctx[row, lane] = torch.where(is_ctx & ok, word, ctx[row, lane])
+            out.append(eng.wi.numpy().copy())
+    return np.stack(out)
+
+
+def test_windowed_fuzz_reads_past_windows_and_slides_the_ring():
+    """Lanes of every windowed fuzz case read past their window's w_blk
+    words (the masked fetch reads 0 there). In the long case the kernel's
+    64-row word ring slides inside a window (a 32-step block that may read
+    word 64 starts at word 53 or later) for many lanes over random words
+    and for every fast lane, more than once."""
+    for case in F.WINDOWED_CASES:
+        wi = _windowed_word_index(case)
+        assert int((wi.max(0) + 1 >= case[4]).sum()) >= 16, case
+    case = F.WINDOWED_CASES[2]
+    blk = case[3]
+    wi = _windowed_word_index(case)
+    # the word index before each 32-step block inside a window, blocks
+    # that start a window left out
+    inner = [t for t in range(32, wi.shape[0], 32) if t % blk]
+    before = wi[np.asarray(inner) - 1]
+    slid = (before >= 53).any(0)
+    slow = np.ones(wi.shape[1], bool)
+    slow[F.FAST] = False
+    assert int((slid & slow).sum()) >= 16
+    assert (before[:, F.FAST] >= 85).any(0).all()
 
 
 def test_longest_lane_counts(traced):

@@ -11,10 +11,10 @@ On a card (`cuda`-marked; each skips without one):
 - the replay, windowed replay and generator kernels vs their plain
   versions on flagship tile 1's 16 WPP substreams, cut to PREFIX bins
   (replays) or steps (generator);
-- the replay and generator kernels vs their plain versions on the seeded
-  contract inputs of utils.cabac_fuzz (tests/test_torch_cabac.py and
-  tests/test_torch_cabac_gen.py hold the plain versions against
-  heif_tpu's Pallas kernels on the same inputs);
+- the replay, windowed replay and generator kernels vs their plain
+  versions on the seeded contract inputs of utils.cabac_fuzz
+  (tests/test_torch_cabac.py and tests/test_torch_cabac_gen.py hold the
+  plain versions against heif_tpu's Pallas kernels on the same inputs);
 - decode_hevc(device="cuda") of flagship tile 1 as an Annex-B stream,
   with both entropy front ends, vs backend="ref".
 Anywhere: this file and every module of heif_tpu_torch import with jax
@@ -156,6 +156,27 @@ def test_replay_kernel_matches_plain_on_long_fuzz(cuda):
     C.reset_launches()
     _same(C.replay(*args), C.replay_plain(*args))
     assert C.LAUNCHES["replay"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F.WINDOWED_CASES)
+def test_windowed_kernel_matches_plain_on_fuzz(cuda, case):
+    """utils.cabac_fuzz.WINDOWED_CASES: packed context bytes with bit 7
+    set, ragged lanes, KIND_PAD and unknown kinds mid-tape, slots outside
+    [0, 136) (136-139 included), windows read past their end, window ends
+    inside the kernel's 32-step blocks, its word ring slid inside a
+    window."""
+    args = [C.as_tensor(a, cuda) for a in F.windowed_inputs(*case)]
+    C.reset_launches()
+    bins, state = C.replay_windowed(*args)
+    assert C.LAUNCHES["windowed"] == 1
+    pbins, pstate = C.replay_windowed_plain(*args)
+    assert torch.equal(bins, pbins)
+    diff = state ^ pstate
+    bad = int(torch.count_nonzero(diff))
+    low = int(torch.count_nonzero(diff & 0x7F7F7F7F))
+    assert not bad, (f"{bad} of {diff.numel()} packed state words differ, "
+                     f"{low} of them outside bit 7 of their bytes")
 
 
 @pytest.mark.cuda
