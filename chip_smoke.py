@@ -61,7 +61,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      warm-up) prints its JSON line and launches both kernels once a chunk
      of each image; the device entropy tools (bench_device_entropy
      run_replay and run_gen) check and time all 768 substreams of phase
-     5; `pytest tests/test_torch_card.py` passes with nothing skipped.
+     5; `pytest tests/test_torch_card.py` passes with nothing skipped;
+ 12. the Main-10 grid (tests/assets/torch/main10_grid_4032x3024.heic:
+     the flagship's 48 tiles re-encoded at 10 bits, CTB 64, irot 3):
+     HeicDecoder.decode(device="cuda") cold and warm (uint16 planes of
+     3024x4032 after rotation, warm equal to cold, both intra kernels
+     launched, tiles 1, 22, 24, 38 and 46 equal to ref_recon), the
+     overlapped decode with readback at the default chunk and to device
+     (int16), each equal to the one-batch decode, and both intra kernels
+     against their plain walks on its plan (times, bound); the walls,
+     MP/s and the stage split.
 The last two lines are a JSON summary of the kernels (the CABAC kernels
 with phase 6's figures) and the card's nvidia-smi line before a final
 {"ok": true, "device": {...}} line.
@@ -81,6 +90,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ASSET = os.path.join(ROOT, "tests", "assets", "halfmoonbay.heic")
+# the flagship's 48 tiles at 10 bits, CTB 64, irot 3 (phase 12;
+# tests/test_torch_fixtures.py encodes it)
+MAIN10_GRID = os.path.join(ROOT, "tests", "assets", "torch",
+                           "main10_grid_4032x3024.heic")
 ORACLE_TILES = (1, 22, 24, 38, 46)
 HEVC_TILES = (1, 22, 24)
 PREFIX = 2048  # bins (replays) / steps (generator) of the plain comparison
@@ -243,9 +256,11 @@ def intra_calls(bp, dev, n_units: int = 0):
 
 def check_kernels(label: str, bp, dev) -> dict:
     """Run both intra kernels and their plain walks on the same device
-    inputs; require bit equality. Returns per-kernel error, times and
-    bound (walk_bytes over the HBM rate; the walk's arithmetic is far
-    below the card's integer rate, so bytes bound it)."""
+    inputs; require bit equality. Returns per-kernel error, times (the
+    kernel's mean of KERNEL_REPS launches; the plain walk's comparison
+    run, by CUDA events) and bound (walk_bytes over the HBM rate; the
+    walk's arithmetic is far below the card's integer rate, so bytes
+    bound it)."""
     import torch
 
     d, sch, calls = intra_calls(bp, dev)
@@ -253,12 +268,16 @@ def check_kernels(label: str, bp, dev) -> dict:
     out = {}
     for c, (name, (kern, plain)) in enumerate(calls.items()):
         got = kern()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         want = plain()
+        end.record()
         torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
         err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
         diff = sum(int((a != b).sum()) for a, b in zip(got, want))
         ms = cuda_ms(kern, KERNEL_REPS)
-        plain_ms = cuda_ms(plain, 1)
         st_np, units_np = steps[c].cpu().numpy(), sch[c].units.cpu().numpy()
         bound = bound_ms(walk_bytes(st_np, counts[c].cpu().numpy(), units_np,
                                     len(got)))
@@ -702,9 +721,12 @@ def _launched(what) -> dict:
 
 
 def _device_stacks(chunks):
+    """Per-chunk device planes as host tile stacks (uint16 for int16)."""
     import torch
 
-    return [torch.cat([ch[c] for ch in chunks]).cpu().numpy()
+    from heif_tpu_torch.ops.batch import host_view
+
+    return [host_view(torch.cat([ch[c] for ch in chunks]).cpu())
             for c in range(3)]
 
 
@@ -1095,6 +1117,105 @@ def check_entry_points(data, out4, sps, pps, n_tiles, rentries, gentries,
     return out
 
 
+def check_main10_grid(dev, card) -> dict:
+    """Phase 12: the Main-10 grid (MAIN10_GRID) through decode() cold and
+    warm (uint16 planes after rotation, warm equal to cold, both intra
+    kernels launched, tiles ORACLE_TILES equal to ref_recon), the
+    overlapped decode with readback at the default chunk and to device,
+    each equal to the one-batch tile stacks (whose stitch equals the
+    decode), and both intra kernels against their plain walks on its
+    plan, timed."""
+    import torch
+
+    from heif_tpu_torch import HeicDecoder
+    from heif_tpu_torch.ops import batch as B
+    from heif_tpu_torch.ops import intra as I
+    from heif_tpu_torch.utils.profiling import DecodeStats
+
+    data = open(MAIN10_GRID, "rb").read()
+    sps, pps, tile_ids, slices, sts = load_flagship(data)
+    out = {}
+    decoded = {}
+    for label in ("cold", "warm"):
+        I.reset_launches()
+        stats = DecodeStats()
+        t0 = time.perf_counter()
+        decoded[label] = HeicDecoder.decode(data, device=dev, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[f"launches_{label}"] = _launched(f"main-10 grid {label} decode")
+        out[f"{label}_s"] = wall
+        out[f"{label}_stages_ms"] = {k: v * 1e3 for k, v in stats.stages.items()}
+    img = decoded["cold"]
+    info = img["info"]
+    mp = info.ispe_width * info.ispe_height / 1e6
+    shape = (info.display_height, info.display_width)
+    if (shape != (4032, 3024) or info.rotation != 3
+            or info.luma_bit_depth != 10):
+        raise SystemExit(f"main-10 grid: {info}")
+    for k, sub in (("Y", 1), ("Cb", 2), ("Cr", 2)):
+        p = img[k]
+        if p.dtype != np.uint16 or p.shape != (shape[0] // sub, shape[1] // sub):
+            raise SystemExit(f"main-10 grid {k}: {p.dtype} {p.shape}, "
+                             f"expected uint16 {(shape[0] // sub, shape[1] // sub)}")
+        if not np.array_equal(p, decoded["warm"][k]):
+            raise SystemExit(f"main-10 grid {k}: warm decode differs from cold")
+    print(f"[main10] output Y {img['Y'].shape} Cb {img['Cb'].shape} uint16 "
+          f"(CTB {1 << sps.ctb_log2_size_y}, {len(slices)} tiles, rotation "
+          f"{info.rotation}); warm == cold; launches {out['launches_cold']}")
+    oracle_check(img, sps, pps, tile_ids, slices, sts)
+    for label in ("cold", "warm"):
+        wall = out[f"{label}_s"]
+        stages = " ".join(f"{k}={v:.1f}ms"
+                          for k, v in out[f"{label}_stages_ms"].items())
+        print(f"[main10] {label}: {wall * 1e3:.1f} ms, {mp / wall:.2f} MP/s "
+              f"({mp:.2f} MP) on {card}; {stages}")
+
+    # the bulk paths against the one-batch tile stacks
+    n = len(slices)
+    ref = [np.stack([t[c] for t in B.reconstruct_tiles(sts, sps, pps, slices,
+                                                         device=dev)])
+           for c in range(3)]
+    stitched = HeicDecoder._stitch([[p[i] for p in ref] for i in range(n)],
+                                   info.grid, sps, True, info.rotation)
+    for k in ("Y", "Cb", "Cr"):
+        if not np.array_equal(stitched[k], img[k]):
+            raise SystemExit(f"main-10 grid: the one-batch tile stacks stitch "
+                             f"to a {k} plane unlike decode()'s")
+    I.reset_launches()
+    t0 = time.perf_counter()
+    got = B.decode_reconstruct_overlapped(sps, pps, slices, device=dev)
+    out["overlapped_s"] = time.perf_counter() - t0
+    out["launches_overlapped"] = _launched("main-10 grid overlapped decode")
+    _same_stacks(got, ref, "main-10 grid overlapped")
+    I.reset_launches()
+    t0 = time.perf_counter()
+    chunks = B.decode_reconstruct_overlapped(sps, pps, slices, readback=False,
+                                             device=dev)
+    torch.cuda.synchronize()
+    out["to_device_s"] = time.perf_counter() - t0
+    out["launches_to_device"] = _launched("main-10 grid decode to device")
+    if any(p.device.type != dev.type or p.dtype != torch.int16
+           for ch in chunks for p in ch):
+        raise SystemExit("main-10 grid decode to device: not int16 on the card")
+    _same_stacks(_device_stacks(chunks), ref, "main-10 grid decode to device")
+    chunk = B.schedule_hints(None, sps, pps, n)["chunk"]
+    print(f"[main10] overlapped chunk={chunk} (readback) "
+          f"{out['overlapped_s'] * 1e3:.1f} ms, {mp / out['overlapped_s']:.2f} "
+          f"MP/s; to device (int16) {out['to_device_s'] * 1e3:.1f} ms, "
+          f"{mp / out['to_device_s']:.2f} MP/s; both equal the one-batch tile "
+          f"stacks, launches {out['launches_overlapped']} / "
+          f"{out['launches_to_device']} on {card}")
+
+    # both intra kernels on this plan, against their plain walks
+    bp = B.pack_batch(sts, sps, pps, slices)
+    out["kernels"] = check_kernels(
+        f"main-10 grid {bp.n}x{bp.height}x{bp.width} CTB {1 << bp.ctb_log2}",
+        bp, dev)
+    print(f"[main10] {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1217,6 +1338,11 @@ def main() -> int:
     check_entry_points(data, out, sps, pps, len(slices), rentries, gentries,
                        goldens, tile_of, dev, card)
     print(f"[entry] phase took {time.perf_counter() - t0:.1f} s")
+
+    # phase 12: the Main-10 grid at full size
+    t0 = time.perf_counter()
+    check_main10_grid(dev, card)
+    print(f"[main10] phase took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, replaces in (("luma", "heif_tpu/ops/pallas_intra.py:420"),

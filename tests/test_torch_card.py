@@ -16,11 +16,33 @@ On a card (`cuda`-marked; each skips without one):
   (tests/test_torch_cabac.py and tests/test_torch_cabac_gen.py hold the
   plain versions against heif_tpu's Pallas kernels on the same inputs);
 - decode_hevc(device="cuda") of flagship tile 1 as an Annex-B stream,
-  with both entropy front ends, vs backend="ref".
+  with both entropy front ends, vs backend="ref";
+- every fixture kind that the CPU tests decode, built without libx265:
+  `tiles` (utils.hevc_synth.synthesize_tiled_intra_stream(96, 64, (2, 2),
+  seed=3): PCM and intra CTBs in 2x2 HEVC tiles, no WPP), `pcm_window`
+  (an all-PCM picture with pcm_loop_filter and a conformance window of
+  (2, 1, 3, 0)), and the committed x265 streams of tests/assets/torch/
+  (tests/test_torch_fixtures.py encodes them): `8bit`, `main10` (10-bit
+  planes in the int16 device dtype), `mono` (4:0:0: the chroma kernel
+  runs on worklists with no real step) and `grid_irot` (a 2x2 grid of
+  CTB-64 tiles with irot 1), each muxed here by utils.heif_mux. Each
+  decodes bit for bit equal to backend="ref" through
+  HeicDecoder.decode(device="cuda") (both intra kernels launched), and
+  its first stream through decode_hevc with entropy "auto" and
+  "device-gen" (the generator on 10-bit residuals, 4:0:0, PCM, CTB 64
+  and a stream without WPP; on `tiles` it raises NotImplementedError);
+  grid_irot and main10 through decode_reconstruct_overlapped (readback
+  on and off, chunk 2) and decode_burst of 2 images, equal to ref_recon
+  tile by tile; `tiles` through decode(mesh_devices=1);
+- the replay and windowed replay kernels vs their plain versions on the
+  per-tile substreams of `tiles` (tools.bench_device_entropy
+  .trace_entries), and the generator vs its plain version on
+  `pcm_window`.
 Anywhere: this file and every module of heif_tpu_torch import with jax
 and heif_tpu made unimportable.
 
-On the card: python -m pytest -q tests/test_torch_card.py
+On the card: python -m pytest -q tests/test_torch_card.py (the card
+needs no libx265: the x265 streams are committed)
 """
 
 import subprocess
@@ -33,17 +55,23 @@ import pytest
 import torch
 
 from heif_tpu_torch.cabac.trace import TraceSegment, trace_tile
-from heif_tpu_torch import HeicDecoder
+from heif_tpu_torch import HeicDecoder, native
 from heif_tpu_torch.ops import batch as B
 from heif_tpu_torch.ops import cabac as C
 from heif_tpu_torch.ops import cabac_gen as G
 from heif_tpu_torch.ops import intra as I
+from heif_tpu_torch.ops.ref_recon import reconstruct_tile
+from heif_tpu_torch.tools import bench_device_entropy as BDE
 from heif_tpu_torch.tools import image_slices
 from heif_tpu_torch.utils import cabac_fuzz as F
+from heif_tpu_torch.utils import hevc_synth
 from heif_tpu_torch.utils.annexb import tile_annexb
+from heif_tpu_torch.utils.heif_mux import mux_heic
 from heif_tpu_torch.utils.synthetic import synthetic_batch
 
 ROOT = Path(__file__).resolve().parents[1]
+FIXTURES = ROOT / "tests" / "assets" / "torch"
+KINDS = ["tiles", "pcm_window", "8bit", "main10", "mono", "grid_irot"]
 TILE = 1  # flagship tile (grid order) of the CABAC and decode tests
 PREFIX = 512  # bins (replays) / steps (generator) of the plain comparison
 
@@ -190,6 +218,155 @@ def test_decode_hevc_on_card_equals_ref(cuda, halfmoonbay_bytes, entropy):
     for k in ("Y", "Cb", "Cr"):
         assert got[k].dtype == want[k].dtype == np.uint8, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _streams(kind: str) -> list:
+    """The Annex-B streams of a fixture kind: one, or four for grid_irot.
+    The planes and seeds are test_torch_decode.py's _container's."""
+    if kind == "tiles":
+        return [hevc_synth.synthesize_tiled_intra_stream(96, 64, (2, 2),
+                                                          seed=3)]
+    if kind == "pcm_window":
+        rng = np.random.default_rng(len(kind))
+        y = rng.integers(0, 256, (64, 96)).astype(np.uint8)
+        cb = rng.integers(0, 256, (32, 48)).astype(np.uint8)
+        cr = rng.integers(0, 256, (32, 48)).astype(np.uint8)
+        return [hevc_synth.synthesize_pcm_stream(y, cb, cr,
+                                                 conf_win=(2, 1, 3, 0))]
+    if kind == "grid_irot":
+        return [(FIXTURES / f"grid_{i}.hevc").read_bytes() for i in range(4)]
+    return [(FIXTURES / f"{kind}.hevc").read_bytes()]
+
+
+def _container(kind: str) -> bytes:
+    streams = _streams(kind)
+    if kind == "grid_irot":
+        return mux_heic(streams, grid=(2, 2, 2 * 96 - 8, 2 * 64 - 6), irot=1)
+    return mux_heic(streams)
+
+
+def _same_planes(got, want, kind):
+    for k in ("Y", "Cb", "Cr"):
+        if k != "Y" and kind == "mono":
+            assert got[k] is None and want[k] is None, k
+            continue
+        dt = np.uint16 if kind == "main10" else np.uint8
+        assert got[k].dtype == want[k].dtype == dt, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_decode_fixture_on_card_equals_ref(cuda, kind):
+    heic = _container(kind)
+    I.reset_launches()
+    got = HeicDecoder.decode(heic, device=cuda)
+    assert I.LAUNCHES == {"luma": 1, "chroma": 1}
+    want = HeicDecoder.decode(heic, backend="ref", device=cuda)
+    assert got["info"] == want["info"]
+    _same_planes(got, want, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entropy", ["auto", "device-gen"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_decode_hevc_fixture_on_card_equals_ref(cuda, kind, entropy):
+    stream = _streams(kind)[0]
+    if kind == "tiles" and entropy == "device-gen":
+        with pytest.raises(NotImplementedError, match="tile"):
+            HeicDecoder.decode_hevc(stream, entropy=entropy, device=cuda)
+        return
+    I.reset_launches()
+    G.reset_launches()
+    got = HeicDecoder.decode_hevc(stream, entropy=entropy, device=cuda)
+    assert I.LAUNCHES == {"luma": 1, "chroma": 1}
+    assert G.LAUNCHES["gen"] == (entropy == "device-gen")
+    want = HeicDecoder.decode_hevc(stream, backend="ref", device=cuda)
+    _same_planes(got, want, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["grid_irot", "main10"])
+def test_bulk_paths_on_fixture_equal_ref_recon(cuda, kind):
+    """The overlapped decode with readback and to device at chunk 2, and
+    a burst of 2 images, equal ref_recon tile by tile; the device planes
+    (int16 above 8 bits) equal their host view."""
+    sps, pps, slices, _ = image_slices(_container(kind))
+    gold = [reconstruct_tile(st, sps, pps, ps.header) for st, ps in
+            zip(native.decode_tiles_parallel(sps, pps, slices), slices)]
+    ref = [np.stack([t[c] for t in gold]) for c in range(3)]
+    dt = torch.int16 if kind == "main10" else torch.uint8
+
+    def same(stacks):
+        for c in range(3):
+            assert stacks[c].dtype == ref[c].dtype and stacks[c].shape == ref[c].shape
+            np.testing.assert_array_equal(stacks[c], ref[c], err_msg=str(c))
+
+    def from_device(chunks):
+        assert all(p.device.type == cuda.type and p.dtype == dt
+                   for ch in chunks for p in ch)
+        return [np.concatenate([B.host_view(ch[c].cpu()) for ch in chunks])
+                for c in range(3)]
+
+    I.reset_launches()
+    same(B.decode_reconstruct_overlapped(sps, pps, slices, chunk=2,
+                                         device=cuda))
+    n_chunks = -(-len(slices) // 2)
+    assert I.LAUNCHES == {"luma": n_chunks, "chroma": n_chunks}
+    I.reset_launches()
+    chunks = B.decode_reconstruct_overlapped(sps, pps, slices, chunk=2,
+                                             readback=False, device=cuda)
+    assert len(chunks) == n_chunks
+    same(from_device(chunks))
+    assert I.LAUNCHES == {"luma": n_chunks, "chroma": n_chunks}
+    I.reset_launches()
+    outs = B.decode_burst(sps, pps, [slices, list(slices)], chunk=2,
+                          device=cuda)
+    assert len(outs) == 2 and I.LAUNCHES["luma"] == I.LAUNCHES["chroma"] > 0
+    for img in outs:
+        same(from_device(img))
+
+
+@pytest.mark.cuda
+def test_decode_mesh1_on_tiles_equals_ref(cuda):
+    heic = _container("tiles")
+    I.reset_launches()
+    got = HeicDecoder.decode(heic, device=cuda, mesh_devices=1)
+    assert I.LAUNCHES["luma"] > 0 and I.LAUNCHES["chroma"] > 0
+    _same_planes(got, HeicDecoder.decode(heic, backend="ref", device=cuda),
+                 "tiles")
+
+
+@pytest.mark.cuda
+def test_replay_kernels_on_tile_substreams(cuda):
+    """The per-tile substreams of `tiles` (PCM blocks end a substream's
+    arithmetic segment, so there are more segments than tiles)."""
+    entries, _, _ = BDE.trace_entries(_container("tiles"))
+    assert len(entries) > 4
+    for name, fn in (("replay", C.replay_image),
+                     ("windowed", C.replay_windowed_image)):
+        C.reset_launches()
+        got = fn(entries, device=cuda)
+        assert C.LAUNCHES[name] == 1, name
+        want = fn(entries, device="cpu")
+        for (_, seg), g, w in zip(entries, got, want):
+            np.testing.assert_array_equal(g[0], seg.bins, err_msg=name)
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_gen_kernel_on_pcm_window(cuda):
+    entries, goldens, tile_of = BDE.trace_entries(_container("pcm_window"),
+                                                  gen=True)
+    G.reset_launches()
+    got = G.gen_image(entries, device=cuda)
+    assert G.LAUNCHES["gen"] == 1
+    for g, w in zip(got, G.gen_image(entries, device="cpu")):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+    out = BDE.run_gen(entries, goldens, tile_of, cuda, timed=False)
+    assert out["streams"] == len(entries)
 
 
 def test_card_file_and_port_import_without_jax():

@@ -17,7 +17,12 @@ the same input and compares every field or array:
 - ref_recon's planes of tile 0;
 - the CABAC engine tables, the scan tables and the reconstruction tables;
 - probe and _stitch;
-- the synthetic SPS / PPS / slice header.
+- the synthetic SPS / PPS / slice header;
+- the fixture modules: hevc_synth's VPS / SPS / PPS (conformance window
+  included), PCM streams (nal_type 20 and 21) and tiled intra streams
+  (seeds 0-2); heif_mux's containers (a single item, a grid with irot,
+  extra_item_nals, the committed Main-10 and 4:0:0 streams); where libx265
+  is present, x265enc's 8- and 10-bit encodes with the encode cache off.
 And the port's entropy library lands under build/, never in
 heif_tpu/native/; a library that fails to build, or has another ABI,
 makes a decode raise rather than fall back to the Python entropy path.
@@ -46,7 +51,10 @@ from heif_tpu.hevc.rbsp import remove_emulation_prevention as ref_unescape
 from heif_tpu.models.decoder import HeicDecoder as RefDecoder
 from heif_tpu.ops import ref_recon as ref_recon
 from heif_tpu.ops import tables as ref_tables
+from heif_tpu.utils import heif_mux as ref_heif_mux
+from heif_tpu.utils import hevc_synth as ref_hevc_synth
 from heif_tpu.utils import synthetic as ref_synthetic
+from heif_tpu.utils import x265enc as ref_x265enc
 from heif_tpu_torch import HeicDecoder, native
 from heif_tpu_torch.cabac import engine, envelope, trace
 from heif_tpu_torch.container import reader
@@ -54,9 +62,10 @@ from heif_tpu_torch.hevc import params, scans
 from heif_tpu_torch.hevc import slice as sl
 from heif_tpu_torch.hevc.rbsp import remove_emulation_prevention as unescape
 from heif_tpu_torch.ops import ref_recon, ref_tables as tables
-from heif_tpu_torch.utils import synthetic
+from heif_tpu_torch.utils import heif_mux, hevc_synth, synthetic, x265enc
 
 ROOT = Path(__file__).resolve().parents[1]
+FIXTURES = ROOT / "tests" / "assets" / "torch"
 
 
 def plain(v):
@@ -241,6 +250,94 @@ def case_stitch(both, entropy, data):
 def case_synthetic_sps_pps(both, entropy, data):
     return (plain(synthetic.synthetic_sps_pps(96)),
             plain(ref_synthetic.synthetic_sps_pps(96)))
+
+
+def _pcm_planes(seed, h=64, w=96):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (h, w)).astype(np.uint8),
+            rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8),
+            rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8))
+
+
+def case_synth_parameter_sets(both, entropy, data):
+    def sets(m):
+        return [m.write_vps(), m.write_sps(96, 64), m.write_sps(
+            128, 64, ctb_log2=4, min_cb_log2=3, pcm=False), m.write_sps(
+            96, 64, pcm_log2=3, pcm_bd=7, conf_win=(2, 1, 3, 0)),
+            m.write_pps(), m.write_pps(tiles=(2, 2)), m.write_pps(tiles=(3, 1))]
+    return sets(hevc_synth), sets(ref_hevc_synth)
+
+
+def case_synth_pcm_streams(both, entropy, data):
+    def streams(m):
+        return [m.synthesize_pcm_stream(*_pcm_planes(1), nal_type=t,
+                                        conf_win=cw)
+                for t in (20, 21) for cw in (None, (2, 1, 3, 0))]
+    return streams(hevc_synth), streams(ref_hevc_synth)
+
+
+def case_synth_tiled_streams(both, entropy, data):
+    def streams(m):
+        return [m.synthesize_tiled_intra_stream(96, 64, (2, 2), seed=s)
+                for s in range(3)] + [
+            m.synthesize_tiled_intra_stream(128, 96, (3, 2), seed=s)
+            for s in range(3)]
+    return streams(hevc_synth), streams(ref_hevc_synth)
+
+
+def case_mux(both, entropy, data):
+    pcm = [hevc_synth.synthesize_pcm_stream(*_pcm_planes(s, 64, 64))
+           for s in range(4)]
+    sei = b"\x4e\x01\x05\x02\xaa\xbb\x80"  # a prefix SEI NAL
+
+    def containers(m):
+        return [m.mux_heic(pcm[:1]), m.mux_heic(pcm, grid=(2, 2, 120, 124),
+                                                irot=1),
+                m.mux_heic(pcm[:1], irot=3, extra_item_nals=[sei]),
+                m.mux_heic(pcm, grid=(2, 2, 128, 128), extra_item_nals=[sei]),
+                m.mux_heic([(FIXTURES / "main10.hevc").read_bytes()]),
+                m.mux_heic([(FIXTURES / "mono.hevc").read_bytes()], irot=2)]
+    return containers(heif_mux), containers(ref_heif_mux)
+
+
+def _x265_case(bit_depth):
+    if not (x265enc.available(bit_depth) and ref_x265enc.available(bit_depth)):
+        pytest.skip(f"{bit_depth}-bit libx265 unavailable")
+    rng = np.random.default_rng(bit_depth)
+    mx = (1 << bit_depth) - 1
+    dt = np.uint8 if bit_depth == 8 else np.uint16
+    y = rng.integers(0, mx + 1, (64, 96)).astype(dt)
+    cb = rng.integers(0, mx + 1, (32, 48)).astype(dt)
+    cr = rng.integers(0, mx + 1, (32, 48)).astype(dt)
+
+    def encodes(m):
+        return [m.encode_i_frame(y, cb, cr, qp=30, bit_depth=bit_depth),
+                m.encode_i_frame(y, cb, cr, qp=22, bit_depth=bit_depth,
+                                 options={"wpp": "0", "ctu": "16"}),
+                m.encode_i_frame(y, None, None, qp=28, bit_depth=bit_depth,
+                                 csp="i400")]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HEIF_TPU_NO_X265_CACHE", "1")
+        assert x265enc._cache_dir() is None
+        return encodes(x265enc), encodes(ref_x265enc)
+
+
+def case_x265_cache_dir(both, entropy, data):
+    """The same cache directory, tests/assets/.x265cache/ by default."""
+    with pytest.MonkeyPatch.context() as mp:
+        for var in ("HEIF_TPU_NO_X265_CACHE", "HEIF_TPU_X265_CACHE"):
+            mp.delenv(var, raising=False)
+        got, want = x265enc._cache_dir(), ref_x265enc._cache_dir()
+    assert Path(got) == ROOT / "tests" / "assets" / ".x265cache"
+    return got, want
+
+
+def case_x265_8bit(both, entropy, data):
+    return _x265_case(8)
+
+
+def case_x265_10bit(both, entropy, data):
+    return _x265_case(10)
 
 
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
