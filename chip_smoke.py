@@ -70,7 +70,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      overlapped decode with readback at the default chunk and to device
      (int16), each equal to the one-batch decode, and both intra kernels
      against their plain walks on its plan (times, bound); the walls,
-     MP/s and the stage split.
+     MP/s and the stage split;
+ 13. the port's end-to-end bench (heif_tpu_torch.tools.bench_e2e, the
+     port of bench.py) as a user runs it: `python -m
+     heif_tpu_torch.tools.bench_e2e tests/assets/halfmoonbay.heic
+     --window 8 --readback-window 4` in a fresh process, which holds its
+     first e2e and decode-to-device planes against the decoder's before
+     timing. Its last stdout line must parse as JSON with bench.py's
+     keys, the three rates finite and > 0, stages_ms holding hdr, recon
+     and stitch, and the ratios null exactly when libde265 cannot be
+     loaded on this host; its stderr must report both intra kernels
+     launched. The line and the bench's '#' lines are printed.
 The last two lines are a JSON summary of the kernels (the CABAC kernels
 with phase 6's figures) and the card's nvidia-smi line before a final
 {"ok": true, "device": {...}} line.
@@ -114,6 +124,10 @@ REPS = 3  # timed runs of each bulk path (phase 9)
 SCHEDULE_REPS = 20  # timed builds of a chunk's intra schedules (phase 9)
 BURST = 4  # images in the burst (phase 9)
 BACKEND = "nccl"  # process-group backend of phase 10
+# phase 13: the bench's command line, run from the repo root
+BENCH_E2E = ("-m", "heif_tpu_torch.tools.bench_e2e",
+             "tests/assets/halfmoonbay.heic", "--window", "8",
+             "--readback-window", "4")
 
 
 def card_line() -> str:
@@ -1216,6 +1230,54 @@ def check_main10_grid(dev, card) -> dict:
     return out
 
 
+def check_bench_e2e(card) -> dict:
+    """Phase 13: BENCH_E2E in a fresh process; its JSON line and its
+    stderr checked as the module docstring says. Returns the line."""
+    import math
+
+    from heif_tpu_torch.tools import bench_e2e
+    from heif_tpu_torch.utils import oracle
+
+    proc = subprocess.run([sys.executable, *BENCH_E2E], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT),
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"bench_e2e failed ({proc.returncode}):\n"
+                         f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    notes = [ln for ln in proc.stderr.splitlines() if ln.startswith("# ")]
+    for note in notes:
+        print(f"[bench] {note}")
+    print(f"[bench] {json.dumps(line)}")
+    if tuple(line) != bench_e2e.KEYS:
+        raise SystemExit(f"bench_e2e keys {list(line)}, expected "
+                         f"{list(bench_e2e.KEYS)}")
+    for k in ("value", "device_mp_s", "burst_mp_s"):
+        if not (isinstance(line[k], float) and math.isfinite(line[k])
+                and line[k] > 0):
+            raise SystemExit(f"bench_e2e {k} = {line[k]!r}")
+    if not {"hdr", "recon", "stitch"} <= set(line["stages_ms"]):
+        raise SystemExit(f"bench_e2e stages_ms {line['stages_ms']}")
+    try:
+        oracle._De265.lib()
+        de265 = True
+    except OSError:
+        de265 = False
+    for k in bench_e2e.KEYS:
+        if "vs_baseline" in k and (line[k] is None) == de265:
+            raise SystemExit(f"bench_e2e {k} = {line[k]!r} with libde265 "
+                             f"{'loadable' if de265 else 'not loadable'}")
+    tag = "# intra kernel launches: "
+    launches = [json.loads(n[len(tag):]) for n in notes if n.startswith(tag)]
+    if len(launches) != 1 or min(launches[0].values()) <= 0:
+        raise SystemExit(f"bench_e2e launched {launches}, not both intra "
+                         "kernels")
+    print(f"[bench] keys, rates, stages and ratios (libde265 "
+          f"{'loadable' if de265 else 'not loadable'}) as expected; "
+          f"launches {launches[0]} on {card}")
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -1343,6 +1405,11 @@ def main() -> int:
     t0 = time.perf_counter()
     check_main10_grid(dev, card)
     print(f"[main10] phase took {time.perf_counter() - t0:.1f} s")
+
+    # phase 13: the port's bench.py, as a user runs it
+    t0 = time.perf_counter()
+    check_bench_e2e(card)
+    print(f"[bench] phase took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, replaces in (("luma", "heif_tpu/ops/pallas_intra.py:420"),

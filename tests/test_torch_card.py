@@ -37,7 +37,10 @@ On a card (`cuda`-marked; each skips without one):
 - the replay and windowed replay kernels vs their plain versions on the
   per-tile substreams of `tiles` (tools.bench_device_entropy
   .trace_entries), and the generator vs its plain version on
-  `pcm_window`.
+  `pcm_window`;
+- tools.bench_e2e.run on `grid_irot` with windows of 0 s: its guard
+  passes (e2e and decode-to-device planes bit-exact), both intra kernels
+  launch, and its line has bench.py's keys.
 Anywhere: this file and every module of heif_tpu_torch import with jax
 and heif_tpu made unimportable.
 
@@ -62,7 +65,7 @@ from heif_tpu_torch.ops import cabac_gen as G
 from heif_tpu_torch.ops import intra as I
 from heif_tpu_torch.ops.ref_recon import reconstruct_tile
 from heif_tpu_torch.tools import bench_device_entropy as BDE
-from heif_tpu_torch.tools import image_slices
+from heif_tpu_torch.tools import bench_e2e, image_slices
 from heif_tpu_torch.utils import cabac_fuzz as F
 from heif_tpu_torch.utils import hevc_synth
 from heif_tpu_torch.utils.annexb import tile_annexb
@@ -325,6 +328,18 @@ def test_bulk_paths_on_fixture_equal_ref_recon(cuda, kind):
     assert len(outs) == 2 and I.LAUNCHES["luma"] == I.LAUNCHES["chroma"] > 0
     for img in outs:
         same(from_device(img))
+
+
+@pytest.mark.cuda
+def test_bench_e2e_run_on_grid_irot(cuda):
+    I.reset_launches()
+    res = bench_e2e.run(_container("grid_irot"), window_s=0,
+                        readback_window_s=0, device=cuda)
+    assert tuple(res) == bench_e2e.KEYS
+    for k in ("value", "device_mp_s", "burst_mp_s"):
+        assert np.isfinite(res[k]) and res[k] > 0, k
+    assert {"hdr", "recon", "stitch"} <= set(res["stages_ms"])
+    assert I.LAUNCHES["luma"] == I.LAUNCHES["chroma"] > 0
 
 
 @pytest.mark.cuda
