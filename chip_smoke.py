@@ -20,7 +20,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      still equal to the plain walk, and to UNFIT_UNITS (more than a block
      may have), which must raise;
   4. the slice: HeicDecoder.decode(data, device="cuda") cold and warm;
-     both kernels must have been launched by it, tiles 1, 22, 24, 38 and
+     both intra kernels must have been launched by it, and the
+     loop-filter kernels twice (deblocking) and once (SAO) for its one
+     core (batch.core, the stage that launches them), tiles 1, 22, 24, 38 and
      46 must equal the numpy reference (heif_tpu_torch.ops.ref_recon) bit for
      bit; stage times and MP/s;
   5. the host envelope trace of all 48 flagship tiles (768 WPP
@@ -46,11 +48,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      equal to the one-batch tile stacks of phase 4's path, and stitched
      equal to phase 4's decode), decode to device (readback=False), and
      decode_burst of 4 flagship images (48 tiles each); the intra
-     kernels must launch in each; walls, MP/s, the host stage split,
+     kernels must launch in each, and deblocking twice and SAO once for
+     each core (a chunk); walls, MP/s, the host stage split,
      the intra kernel time per chunk, the device's idle share, and the
      one-batch decode() wall from the same run;
- 10. the tile split: decode(mesh_devices=1) equals phase 4, and a
-     one-process nccl group runs decode_burst_sharded in a subprocess,
+ 10. the tile split: decode(mesh_devices=1) equals phase 4 (the loop
+     filters twice and once a core), and a one-process nccl group runs decode_burst_sharded in a subprocess,
      equal to phase 4 and launching both kernels;
  11. the entry points a user runs: `python -m heif_tpu_torch decode
      IMAGE --trace -o x.npz` through cli.main equals phase 4, and its
@@ -66,7 +69,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      the flagship's 48 tiles re-encoded at 10 bits, CTB 64, irot 3):
      HeicDecoder.decode(device="cuda") cold and warm (uint16 planes of
      3024x4032 after rotation, warm equal to cold, both intra kernels
-     launched, tiles 1, 22, 24, 38 and 46 equal to ref_recon), the
+     launched, the loop filters twice and once a core, tiles 1, 22, 24,
+     38 and 46 equal to ref_recon), the
      overlapped decode with readback at the default chunk and to device
      (int16), each equal to the one-batch decode, and both intra kernels
      against their plain walks on its plan (times, bound); the walls,
@@ -80,7 +84,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      keys, the three rates finite and > 0, stages_ms holding hdr, recon
      and stitch, and the ratios null exactly when libde265 cannot be
      loaded on this host; its stderr must report both intra kernels
-     launched. The line and the bench's '#' lines are printed.
+     launched. The line and the bench's '#' lines are printed;
+ 14. the loop-filter kernels (csrc/loopfilter.cu, ops.loopfilter.deblock
+     and sao) against their plain PyTorch versions on the card, bit for
+     bit, on the intra planes of a 16-tile flagship chunk, of the Main-10
+     grid's plan, of the synthetic 10-bit PCM batch and of the tall
+     HEVC-tiles batch, then on every seeded case of
+     heif_tpu_torch/utils/loopfilter_fuzz.py (SAO on the plain deblocked
+     planes); each kernel's time (the mean of LF_REPS launches, CUDA
+     events) on the flagship chunk and the Main-10 plan beside its plain
+     version's time and its byte bound (ops.loopfilter.loopfilter_bytes).
 The last two lines are a JSON summary of the kernels (the CABAC kernels
 with phase 6's figures) and the card's nvidia-smi line before a final
 {"ok": true, "device": {...}} line.
@@ -113,6 +126,12 @@ HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 # flagship plan, ms (PERF.md section 6; H100 80GB HBM3, 700 W)
 EARLIER_MS = {"luma": 10.203, "chroma": 2.912}
 KERNEL_REPS = 20  # timed launches of each intra kernel (phase 3)
+LF_REPS = 20  # timed launches of each loop-filter kernel (phase 14)
+LF_SOURCE = "heif_tpu_torch/csrc/loopfilter.cu"
+# the stages of heif_tpu.ops.batch._core that the loop-filter kernels
+# stand in for: jnp code that XLA fuses there, no Pallas kernel
+LF_REPLACES = {"deblock": "heif_tpu/ops/batch.py:565",
+               "sao": "heif_tpu/ops/batch.py:631"}
 # unit-table size a worklist of the padded intra check (phase 3): its
 # counters pass 48 KB of shared memory together with the kernel's own
 PADDED_UNITS = 8150
@@ -349,7 +368,7 @@ def phase3_kernels(sps, pps, slices, sts, dev, card):
     flagship plan, the synthetic 10-bit PCM + strong-smoothing batch, and
     tall tiled pictures (more CTB rows than warps; HEVC tile columns and
     rows, so units of different tiles run side by side). Returns the
-    three check_kernels results."""
+    three check_kernels results and the synthetic and tall plans."""
     import dataclasses
 
     from heif_tpu_torch.ops import batch as B
@@ -379,7 +398,7 @@ def phase3_kernels(sps, pps, slices, sts, dev, card):
     tall = check_kernels(
         f"tall 3x{tbp.height}x{tbp.width} in 2x2 HEVC tiles "
         f"({tbp.height >> tbp.ctb_log2} luma CTB rows)", tbp, dev)
-    return flag, synth, tall
+    return flag, synth, tall, {"synth": sbp, "tall": tbp}
 
 
 def tile_planes(out: dict, i: int, sps) -> list:
@@ -722,16 +741,36 @@ def _same_stacks(got, ref, what):
                              "stacks")
 
 
-def _launched(what) -> dict:
-    """The intra launch counts since the last reset; fail unless both
-    kernels ran."""
+def reset_launches() -> None:
+    """Set the intra and loop-filter launch counts to 0."""
     from heif_tpu_torch.ops import intra as I
+    from heif_tpu_torch.ops import loopfilter as LF
+
+    I.reset_launches()
+    LF.reset_launches()
+
+
+def _launched(what, header) -> dict:
+    """The intra and loop-filter launch counts since reset_launches();
+    fail unless both intra kernels ran, and unless every core (one launch
+    of each intra kernel) launched deblocking twice and SAO once where
+    the slice header turns them on."""
+    from heif_tpu_torch.ops import intra as I
+    from heif_tpu_torch.ops import loopfilter as LF
 
     counts = dict(I.LAUNCHES)
     for name, count in counts.items():
         if count <= 0:
             raise SystemExit(f"{what} never launched the {name} kernel")
-    return counts
+    cores = counts["luma"]
+    want = {"deblock": (0 if header.slice_deblocking_filter_disabled_flag
+                        else 2 * cores),
+            "sao": (cores if header.slice_sao_luma_flag
+                    or header.slice_sao_chroma_flag else 0)}
+    if dict(LF.LAUNCHES) != want:
+        raise SystemExit(f"{what} launched the loop filters {LF.LAUNCHES}, "
+                         f"expected {want} for {cores} cores")
+    return {**counts, **want}
 
 
 def _device_stacks(chunks):
@@ -760,7 +799,6 @@ def check_bulk(data, out4, sts, dev, card) -> dict:
     from heif_tpu_torch.utils.profiling import DecodeStats
     from heif_tpu_torch import HeicDecoder
     from heif_tpu_torch.ops import batch as B
-    from heif_tpu_torch.ops import intra as I
 
     info = out4["info"]
     mp = info.ispe_width * info.ispe_height / 1e6
@@ -783,11 +821,14 @@ def check_bulk(data, out4, sts, dev, card) -> dict:
     # readback=True at the default chunk and at one chunk of 48, then
     # timed in turns, end to end as a caller runs them (slice headers,
     # the overlapped decode, stitch) beside the one-batch decode()
+    header = slices[0].header
     for c in (chunk, n):
-        I.reset_launches()
+        reset_launches()
         _same_stacks(B.decode_reconstruct_overlapped(
             sps, pps, slices, chunk=c, device=dev), ref, f"overlapped chunk={c}")
-        out[f"launches_chunk{c}"] = _launched(f"overlapped chunk={c}")
+        out[f"launches_chunk{c}"] = _launched(f"overlapped chunk={c}", header)
+        print(f"[bulk] overlapped chunk={c}: launches "
+              f"{out[f'launches_chunk{c}']}")
 
     def e2e(c):
         t0 = time.perf_counter()
@@ -881,13 +922,13 @@ def check_bulk(data, out4, sts, dev, card) -> dict:
     # decode to device: per-chunk CUDA planes, only real tiles
     dev_walls = []
     for _ in range(REPS):
-        I.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         chunks = B.decode_reconstruct_overlapped(sps, pps, slices,
                                                  readback=False, device=dev)
         torch.cuda.synchronize()
         dev_walls.append(time.perf_counter() - t0)
-        out["launches_to_device"] = _launched("decode to device")
+        out["launches_to_device"] = _launched("decode to device", header)
         if (sum(ch[0].shape[0] for ch in chunks) != n
                 or any(p.device.type != dev.type or p.dtype != torch.uint8
                        for ch in chunks for p in ch)):
@@ -903,12 +944,12 @@ def check_bulk(data, out4, sts, dev, card) -> dict:
     burst_walls = []
     for _ in range(2):
         lists = [parse_flagship(data)[3] for _ in range(BURST)]
-        I.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         outs = B.decode_burst(sps, pps, lists, device=dev)
         torch.cuda.synchronize()
         burst_walls.append(time.perf_counter() - t0)
-        out["launches_burst"] = _launched("decode_burst")
+        out["launches_burst"] = _launched("decode_burst", header)
         if len(outs) != BURST:
             raise SystemExit(f"decode_burst: {len(outs)} images of {BURST}")
         for ii, img in enumerate(outs):
@@ -943,13 +984,14 @@ def check_split(data, out4, card) -> dict:
     import tempfile
 
     from heif_tpu_torch import HeicDecoder
-    from heif_tpu_torch.ops import intra as I
 
-    I.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     got = HeicDecoder.decode(data, device="cuda", mesh_devices=1)
     wall = time.perf_counter() - t0
-    out = {"mesh1_s": wall, "launches_mesh1": _launched("decode(mesh_devices=1)")}
+    header = parse_flagship(data)[3][0].header
+    out = {"mesh1_s": wall,
+           "launches_mesh1": _launched("decode(mesh_devices=1)", header)}
     for k in ("Y", "Cb", "Cr"):
         if not np.array_equal(got[k], out4[k]):
             raise SystemExit(f"decode(mesh_devices=1): {k} differs from phase 4")
@@ -1143,21 +1185,22 @@ def check_main10_grid(dev, card) -> dict:
 
     from heif_tpu_torch import HeicDecoder
     from heif_tpu_torch.ops import batch as B
-    from heif_tpu_torch.ops import intra as I
     from heif_tpu_torch.utils.profiling import DecodeStats
 
     data = open(MAIN10_GRID, "rb").read()
     sps, pps, tile_ids, slices, sts = load_flagship(data)
     out = {}
     decoded = {}
+    header = slices[0].header
     for label in ("cold", "warm"):
-        I.reset_launches()
+        reset_launches()
         stats = DecodeStats()
         t0 = time.perf_counter()
         decoded[label] = HeicDecoder.decode(data, device=dev, stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        out[f"launches_{label}"] = _launched(f"main-10 grid {label} decode")
+        out[f"launches_{label}"] = _launched(f"main-10 grid {label} decode",
+                                             header)
         out[f"{label}_s"] = wall
         out[f"{label}_stages_ms"] = {k: v * 1e3 for k, v in stats.stages.items()}
     img = decoded["cold"]
@@ -1196,19 +1239,21 @@ def check_main10_grid(dev, card) -> dict:
         if not np.array_equal(stitched[k], img[k]):
             raise SystemExit(f"main-10 grid: the one-batch tile stacks stitch "
                              f"to a {k} plane unlike decode()'s")
-    I.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     got = B.decode_reconstruct_overlapped(sps, pps, slices, device=dev)
     out["overlapped_s"] = time.perf_counter() - t0
-    out["launches_overlapped"] = _launched("main-10 grid overlapped decode")
+    out["launches_overlapped"] = _launched("main-10 grid overlapped decode",
+                                           header)
     _same_stacks(got, ref, "main-10 grid overlapped")
-    I.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     chunks = B.decode_reconstruct_overlapped(sps, pps, slices, readback=False,
                                              device=dev)
     torch.cuda.synchronize()
     out["to_device_s"] = time.perf_counter() - t0
-    out["launches_to_device"] = _launched("main-10 grid decode to device")
+    out["launches_to_device"] = _launched("main-10 grid decode to device",
+                                          header)
     if any(p.device.type != dev.type or p.dtype != torch.int16
            for ch in chunks for p in ch):
         raise SystemExit("main-10 grid decode to device: not int16 on the card")
@@ -1226,6 +1271,7 @@ def check_main10_grid(dev, card) -> dict:
     out["kernels"] = check_kernels(
         f"main-10 grid {bp.n}x{bp.height}x{bp.width} CTB {1 << bp.ctb_log2}",
         bp, dev)
+    out["plan"] = bp
     print(f"[main10] {card}")
     return out
 
@@ -1278,6 +1324,101 @@ def check_bench_e2e(card) -> dict:
     return line
 
 
+def intra_planes(bp, dev):
+    """The [Y, Cb, Cr] planes a plan's intra kernels give and the plan's
+    device inputs (plan_to_device): what core hands to the loop filters."""
+    d, _, calls = intra_calls(bp, dev)
+    return [*calls["luma"][0](), *calls["chroma"][0]()], d
+
+
+def check_filters(label: str, planes, d, bp, timed: bool) -> dict:
+    """Both loop-filter kernels against their plain versions on the same
+    inputs, bit for bit: deblocking on `planes`, SAO on the plain
+    deblocked planes. Per kernel the largest error and the plain
+    version's comparison run (CUDA events); timed: also the kernel's
+    mean over LF_REPS launches and its bound (loopfilter_bytes over the
+    HBM rate; a few dozen integer operations a sample are far below the
+    card's integer rate, so bytes bound both)."""
+    import torch
+
+    from heif_tpu_torch.ops import loopfilter as LF
+
+    out = {}
+    src = planes
+    for name, kern, plain in (("deblock", LF.deblock, LF.deblock_plain),
+                              ("sao", LF.sao, LF.sao_plain)):
+        got = kern(src, d, bp)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(src, d, bp)
+        end.record()
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+        diff = sum(int((a != b).sum()) for a, b in zip(got, want))
+        res = {"max_abs_err": err, "plain_ms": start.elapsed_time(end)}
+        line = (f"[loopfilter] {label} {name}: max_abs_err={err} "
+                f"mismatches={diff}")
+        if timed:
+            res["ms"] = cuda_ms(lambda k=kern, x=src: k(x, d, bp), LF_REPS)
+            res["bound_ms"] = bound_ms(LF.loopfilter_bytes(name, bp.n, bp))
+            line += (f"; kernel {res['ms']:.4f} ms (mean of {LF_REPS}), plain "
+                     f"{res['plain_ms']:.2f} ms, bound {res['bound_ms']:.4f} "
+                     f"ms (bytes)")
+        print(line)
+        if diff:
+            raise SystemExit(f"{label}: the {name} kernel disagrees with its "
+                             "plain version")
+        out[name] = res
+        src = want
+    return out
+
+
+def check_loopfilter(sps, pps, slices, sts, plans, main10_plan, dev,
+                     card) -> dict:
+    """Phase 14: both loop-filter kernels against their plain versions on
+    the intra planes of a flagship chunk (timed: the main path's shape),
+    the Main-10 grid's plan (timed), the synthetic 10-bit PCM batch and
+    the tall HEVC-tiles batch (plans: phase 3's), then on every case of
+    utils.loopfilter_fuzz. Returns per kernel the flagship chunk's
+    numbers with the largest error over all inputs."""
+    from heif_tpu_torch.ops import batch as B
+    from heif_tpu_torch.utils import loopfilter_fuzz as LFF
+
+    chunk = B.schedule_hints(None, sps, pps, len(slices))["chunk"]
+    bp = B.pack_batch(sts[:chunk], sps, pps, slices[:chunk])
+    out = check_filters(
+        f"flagship chunk {bp.n}x{bp.height}x{bp.width} CTB {1 << bp.ctb_log2}",
+        *intra_planes(bp, dev), bp, True)
+    inputs = [
+        (f"main-10 grid {main10_plan.n}x{main10_plan.height}x"
+         f"{main10_plan.width} CTB {1 << main10_plan.ctb_log2}", main10_plan,
+         True),
+        (f"synthetic {plans['synth'].n}x{plans['synth'].height}x"
+         f"{plans['synth'].width} 10-bit+PCM", plans["synth"], False),
+        (f"tall {plans['tall'].n}x{plans['tall'].height}x"
+         f"{plans['tall'].width} in 2x2 HEVC tiles", plans["tall"], False),
+    ]
+    for label, p, timed in inputs:
+        res = check_filters(label, *intra_planes(p, dev), p, timed)
+        for name in out:
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                           res[name]["max_abs_err"])
+    for case in LFF.CASES:
+        planes, d = LFF.tensors(case, dev)
+        res = check_filters(f"fuzz seed {case.seed} {case.n}x{case.height}x"
+                            f"{case.width}", planes, d, case, False)
+        for name in out:
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                           res[name]["max_abs_err"])
+    for name in out:
+        print(f"[loopfilter] {name}: flagship chunk {out[name]['ms']:.4f} ms, "
+              f"plain {out[name]['plain_ms']:.2f} ms, bound "
+              f"{out[name]['bound_ms']:.4f} ms; every input bit-exact on "
+              f"{card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1295,7 +1436,6 @@ def main() -> int:
     from heif_tpu_torch.utils.profiling import DecodeStats
     from heif_tpu_torch import HeicDecoder
     from heif_tpu_torch.ops import _build
-    from heif_tpu_torch.ops import intra as I
     from heif_tpu_torch.tools import bench_device_entropy as BDE
 
     dev = torch.device("cuda")
@@ -1322,16 +1462,16 @@ def main() -> int:
     # phase 3
     data = open(ASSET, "rb").read()
     sps, pps, tile_ids, slices, sts = load_flagship(data)
-    flag, synth, tall = phase3_kernels(sps, pps, slices, sts, dev, card)
+    flag, synth, tall, plans = phase3_kernels(sps, pps, slices, sts, dev, card)
 
     # phase 4: the main path, through the entry point a user calls
-    I.reset_launches()
+    reset_launches()
     cold = DecodeStats()
     t0 = time.perf_counter()
     out = HeicDecoder.decode(data, device="cuda", stats=cold)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = dict(I.LAUNCHES)
+    launches = _launched("the decode", slices[0].header)
     print(f"[slice] kernel launches in the decode: {launches}")
     for name, count in launches.items():
         if count <= 0:
@@ -1403,13 +1543,19 @@ def main() -> int:
 
     # phase 12: the Main-10 grid at full size
     t0 = time.perf_counter()
-    check_main10_grid(dev, card)
+    main10 = check_main10_grid(dev, card)
     print(f"[main10] phase took {time.perf_counter() - t0:.1f} s")
 
     # phase 13: the port's bench.py, as a user runs it
     t0 = time.perf_counter()
     check_bench_e2e(card)
     print(f"[bench] phase took {time.perf_counter() - t0:.1f} s")
+
+    # phase 14: the loop-filter kernels against their plain versions
+    t0 = time.perf_counter()
+    lf = check_loopfilter(sps, pps, slices, sts, plans, main10["plan"], dev,
+                          card)
+    print(f"[loopfilter] phase took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, replaces in (("luma", "heif_tpu/ops/pallas_intra.py:420"),
@@ -1447,6 +1593,14 @@ def main() -> int:
             "ms": plain[key]["ms"], "plain_ms": plain[key]["plain_ms"],
             "bound_ms": plain[key]["bound_ms"], "bound_by": "bytes",
             "library_ms": None, **golden[key],
+        })
+    for name in ("deblock", "sao"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": LF_SOURCE,
+            "replaces": LF_REPLACES[name], "launches": launches[name],
+            "max_abs_err": lf[name]["max_abs_err"], "ms": lf[name]["ms"],
+            "plain_ms": lf[name]["plain_ms"], "bound_ms": lf[name]["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

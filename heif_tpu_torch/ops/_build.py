@@ -38,7 +38,7 @@ _lock = threading.Lock()
 _lib = None
 build_seconds = 0.0  # wall time of the build that produced the loaded library
 
-_vp, _i = ctypes.c_void_p, ctypes.c_int
+_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # plane, res, pcm, steps, src, counts, units, n, S, U, HP, WP, HR, WR,
     # bd, strong, ctb_log2, stream
@@ -54,6 +54,14 @@ _SIGNATURES = {
     # events, dbg, state, words, tape, c0, tbl, sb_fwd, sb_inv, co_fwd,
     # co_inv, sig4, B, W, S_env, S, stream
     "heif_cabac_gen": [_vp] * 12 + [_i] * 4 + [_vp],
+    # pass, y, cb, cr, y_in, cb_in, cr_in, (batch, row) strides of the
+    # three inputs, edges, qp, nf, beta, tc, cqp, n, H, W, beta_off,
+    # tc_off, cb_off, cr_off, bd_y, bd_c, stream
+    "heif_deblock": [_i] + [_vp] * 6 + [_ll] * 6 + [_vp] * 6 + [_i] * 9
+                    + [_vp],
+    # y, cb, cr, y_in, cb_in, cr_in, strides as above, sao, nf, n, H, W,
+    # R, C, ctb_log2, bd_y, bd_c, stream
+    "heif_sao": [_vp] * 6 + [_ll] * 6 + [_vp] * 2 + [_i] * 8 + [_vp],
 }
 
 

@@ -11,7 +11,8 @@ tests/test_torch_overlap.py hold the copy against the original.
 Device half (torch): `core` is the port of heif_tpu.ops.batch._core.
 Transform classes are flattened across tiles (one dense [k, s, s] batch
 per (component, size) class), the intra walks run all tiles at once
-(one CUDA block per tile), and deblock / SAO run over the tile axis.
+(one CUDA block per tile), and deblock / SAO run over the tile axis
+(ops.loopfilter: two deblocking launches and one SAO launch a batch).
 
 Entry points: reconstruct_tiles (all tiles of an image in one batch, the
 path of HeicDecoder.decode) and the bulk paths, which cut the tiles into
@@ -35,6 +36,7 @@ import torch
 
 from heif_tpu_torch.device import resolve_device
 from heif_tpu_torch.ops import intra as I
+from heif_tpu_torch.ops import loopfilter as LF
 from heif_tpu_torch.ops import recon as R
 from heif_tpu_torch.tables import tables_on
 
@@ -590,10 +592,8 @@ def core(d: dict, bp: BatchPlan, device: torch.device, stats=None) -> list:
     d: plan_to_device(bp, device). Returns [Y, Cb, Cr] as [N, h, w] int32
     device tensors.
     """
-    tables = tables_on(device)
     H, W = bp.height, bp.width
     Hc, Wc = H // 2, W // 2
-    dims = [(H, W), (Hc, Wc), (Hc, Wc)]
     bd_y, bd_c = bp.bit_depth_y, bp.bit_depth_c
 
     # ---- stage 1: residuals ----
@@ -615,87 +615,16 @@ def core(d: dict, bp: BatchPlan, device: torch.device, stats=None) -> list:
         )
         planes = [y, cb, cr]
 
-    # ---- stage 3: deblocking ----
+    # ---- stage 3: deblocking (two launches on CUDA) ----
     if not bp.deblock_disabled:
         with _stage(stats, "deblock", device):
-            planes = _deblock(planes, d, bp, device, tables)
+            planes = LF.deblock(planes, d, bp)
 
-    # ---- stage 4: SAO ----
+    # ---- stage 4: SAO (one launch on CUDA) ----
     if bp.sao_luma or bp.sao_chroma:
         with _stage(stats, "sao", device):
-            planes = _sao(planes, d, bp, dims)
+            planes = LF.sao(planes, d, bp)
     return planes
-
-
-def _deblock(planes, d, bp, device, tables):
-    H, W = bp.height, bp.width
-    Hc, Wc = H // 2, W // 2
-    qp, nf = d["qp_map"], d["nf_map"]
-    ve, he = d["vert_edges"], d["horiz_edges"]
-    qT, nT, hT = qp.transpose(1, 2), nf.transpose(1, 2), he.transpose(1, 2)
-    bo, to = bp.beta_off, bp.tc_off
-    bd_y, bd_c = bp.bit_depth_y, bp.bit_depth_c
-
-    def ar(k, mul, add):
-        return torch.arange(k, device=device) * mul + add
-
-    # vertical edges index by W, the transposed (horizontal) pass by H
-    cols = ar(W // 8 - 1, 2, 2)
-    rows = ar(H // 8 - 1, 2, 2)
-    y = R.deblock_luma_pass(
-        planes[0], ve[:, :, cols], qp[:, :, cols - 1], qp[:, :, cols],
-        nf[:, :, cols - 1], nf[:, :, cols], bo, to, bd_y, tables,
-    )
-    y = R.deblock_luma_pass(
-        y.transpose(1, 2), hT[:, :, rows], qT[:, :, rows - 1], qT[:, :, rows],
-        nT[:, :, rows - 1], nT[:, :, rows], bo, to, bd_y, tables,
-    ).transpose(1, 2)
-    out = [y]
-
-    ccols = ar(Wc // 8 - 1, 4, 4)
-    crows = ar(Hc // 8 - 1, 4, 4)
-    lut = tables.chroma_qp_lut
-    for ci, c_off in ((1, bp.cb_qp_off), (2, bp.cr_qp_off)):
-        qp_avg = (qp[:, :, ccols - 1] + qp[:, :, ccols] + 1) >> 1
-        qpc = lut[(qp_avg + c_off).clamp(0, 57).long()]
-        p = R.deblock_chroma_pass(
-            planes[ci], ve[:, :, ccols], qpc, nf[:, :, ccols - 1],
-            nf[:, :, ccols], to, bd_c, tables,
-        )
-        qp_avg_t = (qT[:, :, crows - 1] + qT[:, :, crows] + 1) >> 1
-        qpc_t = lut[(qp_avg_t + c_off).clamp(0, 57).long()]
-        p = R.deblock_chroma_pass(
-            p.transpose(1, 2), hT[:, :, crows], qpc_t, nT[:, :, crows - 1],
-            nT[:, :, crows], to, bd_c, tables,
-        ).transpose(1, 2)
-        out.append(p)
-    return out
-
-
-def _sao(planes, d, bp, dims):
-    sao, nf = d["sao"], d["nf_map"]
-    out = []
-    for c in range(3):
-        enabled = bp.sao_luma if c == 0 else bp.sao_chroma
-        if not enabled:
-            out.append(planes[c])
-            continue
-        sub = 1 if c == 0 else 2
-        cs = (1 << bp.ctb_log2) // sub
-        h, w = dims[c]
-
-        def rep(a, k=cs):
-            return a.repeat_interleave(k, 1).repeat_interleave(k, 2)[:, :h, :w]
-
-        stype = rep(sao[:, :, :, c, 0])
-        sclass = rep(sao[:, :, :, c, 1])
-        offs = torch.stack([rep(sao[:, :, :, c, 2 + i]) for i in range(4)], dim=-1)
-        nf_pix = rep(nf, 4 // sub)
-        out.append(R.sao_component(
-            planes[c], stype, sclass, offs, nf_pix,
-            bp.bit_depth_y if c == 0 else bp.bit_depth_c,
-        ))
-    return out
 
 
 def out_dtype(bd_y: int, bd_c: int) -> torch.dtype:

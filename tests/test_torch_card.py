@@ -38,6 +38,12 @@ On a card (`cuda`-marked; each skips without one):
   per-tile substreams of `tiles` (tools.bench_device_entropy
   .trace_entries), and the generator vs its plain version on
   `pcm_window`;
+- the deblocking and SAO kernels (ops.loopfilter) vs their plain
+  versions on every seeded case of utils.loopfilter_fuzz, on contiguous
+  planes and on views of padded planes (as the intra walk leaves them),
+  and on the synthetic 10-bit PCM batch's intra planes; every fixture
+  kind's decode launches deblocking twice and SAO once where its slice
+  header turns them on;
 - tools.bench_e2e.run on `grid_irot` with windows of 0 s: its guard
   passes (e2e and decode-to-device planes bit-exact), both intra kernels
   launch, and its line has bench.py's keys.
@@ -63,11 +69,13 @@ from heif_tpu_torch.ops import batch as B
 from heif_tpu_torch.ops import cabac as C
 from heif_tpu_torch.ops import cabac_gen as G
 from heif_tpu_torch.ops import intra as I
+from heif_tpu_torch.ops import loopfilter as LF
 from heif_tpu_torch.ops.ref_recon import reconstruct_tile
 from heif_tpu_torch.tools import bench_device_entropy as BDE
 from heif_tpu_torch.tools import bench_e2e, image_slices
 from heif_tpu_torch.utils import cabac_fuzz as F
 from heif_tpu_torch.utils import hevc_synth
+from heif_tpu_torch.utils import loopfilter_fuzz as LFF
 from heif_tpu_torch.utils.annexb import tile_annexb
 from heif_tpu_torch.utils.heif_mux import mux_heic
 from heif_tpu_torch.utils.synthetic import synthetic_batch
@@ -340,6 +348,82 @@ def test_bench_e2e_run_on_grid_irot(cuda):
         assert np.isfinite(res[k]) and res[k] > 0, k
     assert {"hdr", "recon", "stitch"} <= set(res["stages_ms"])
     assert I.LAUNCHES["luma"] == I.LAUNCHES["chroma"] > 0
+
+
+def _padded_views(planes):
+    """Each plane as a view into a larger buffer, rows apart by more than
+    their width, as the intra walk leaves its planes."""
+    views = []
+    for p in planes:
+        n, h, w = p.shape
+        buf = torch.full((n, h + 3, w + 9), -77, dtype=p.dtype, device=p.device)
+        buf[:, 1 : 1 + h, 2 : 2 + w] = p
+        views.append(buf[:, 1 : 1 + h, 2 : 2 + w])
+    return views
+
+
+def _filters_match_plain(planes, d, bp):
+    """Both kernels vs their plain versions on the same planes: deblock,
+    then SAO on the plain deblocked planes; launch counts per call."""
+    want = LF.deblock_plain(planes, d, bp)
+    want_sao = LF.sao_plain(want, d, bp)
+    for src in (planes, _padded_views(planes)):
+        LF.reset_launches()
+        _same(LF.deblock(src, d, bp), want)
+        _same(LF.sao(want, d, bp), want_sao)
+        assert LF.LAUNCHES == {"deblock": 0 if bp.deblock_disabled else 2,
+                               "sao": int(any(LF.sao_on(bp)))}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LFF.CASES, ids=lambda c: f"seed{c.seed}")
+def test_loopfilter_kernels_match_plain_on_fuzz(cuda, case):
+    """utils.loopfilter_fuzz: bit depths 8 and 10, non-square planes, CTB
+    16-64 with partial CTBs, every decision, QP at the tables' ends,
+    chroma QP offsets of +-12, bypass islands, every SAO type, band
+    positions 28-31, edge classes at the picture edges, stages off."""
+    planes, d = LFF.tensors(case, cuda)
+    _filters_match_plain(planes, d, case)
+
+
+@pytest.mark.cuda
+def test_loopfilter_kernels_on_intra_planes(cuda):
+    """The synthetic 10-bit PCM batch (pcm_loop_filter_disabled, so
+    bypass blocks) through residuals and the intra kernels, then both
+    loop filters vs their plain versions on those planes."""
+    bp = B.pack_batch(*synthetic_batch(n=4, size=128, bd=10, pcm=True,
+                                       strong_smoothing=True, seed=7))
+    d = B.plan_to_device(bp, cuda)
+    res = B.residual_planes(d, bp, cuda)
+    srcs = B.source_tables(d, bp)
+    steps, counts, pcm, sch = d["steps"], d["counts"], d["pcm"], d["schedules"]
+    y = I.intra_scan_luma(res[0], steps[0], srcs[0], counts[0], pcm[0],
+                          h=bp.height, w=bp.width, bd=bp.bit_depth_y,
+                          strong_smoothing=bp.strong_smoothing,
+                          schedule=sch[0])
+    cb, cr = I.intra_scan_chroma2(res[1], res[2], steps[1], srcs[1],
+                                  counts[1], pcm[1], pcm[2],
+                                  h=bp.height // 2, w=bp.width // 2,
+                                  bd=bp.bit_depth_c, schedule=sch[1])
+    assert bool(d["nf_map"].any())
+    _filters_match_plain([y, cb, cr], d, bp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_decode_fixture_launches_loop_filter_kernels(cuda, kind):
+    """One core a decode: two deblocking launches where the slice header
+    leaves deblocking on, one SAO launch where it turns SAO on for luma
+    or chroma."""
+    h = image_slices(_container(kind))[2][0].header
+    I.reset_launches()
+    LF.reset_launches()
+    HeicDecoder.decode(_container(kind), device=cuda)
+    assert I.LAUNCHES == {"luma": 1, "chroma": 1}
+    assert LF.LAUNCHES == {
+        "deblock": 0 if h.slice_deblocking_filter_disabled_flag else 2,
+        "sao": int(h.slice_sao_luma_flag or h.slice_sao_chroma_flag)}
 
 
 @pytest.mark.cuda
