@@ -93,7 +93,24 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      heif_tpu_torch/utils/loopfilter_fuzz.py (SAO on the plain deblocked
      planes); each kernel's time (the mean of LF_REPS launches, CUDA
      events) on the flagship chunk and the Main-10 plan beside its plain
-     version's time and its byte bound (ops.loopfilter.loopfilter_bytes).
+     version's time and its byte bound (ops.loopfilter.loopfilter_bytes);
+ 15. the stage-1 kernels against their plain PyTorch versions on the
+     card, bit for bit: the residual kernel (csrc/residual.cu,
+     ops.residual.residual_planes vs residual_plain) and the source-table
+     kernel (csrc/refsrc.cu, ops.refsrc.ref_sources on the luma and
+     chroma worklists vs recon.ref_sources), on a 16-tile flagship chunk,
+     the Main-10 grid's plan, the synthetic 10-bit PCM batch and the tall
+     HEVC-tiles batch, then on every seeded case of
+     heif_tpu_torch/utils/residual_fuzz.py and refsrc_fuzz.py; each
+     kernel's time (the mean of STAGE1_REPS launches, CUDA events) on the
+     flagship chunk and the Main-10 plan beside its plain version's time
+     and its bound (residual: the larger of ops.residual.residual_bytes
+     at the HBM rate and residual_macs at the int32 rate; source tables:
+     ops.refsrc.refsrc_bytes), and for the residual the eager route's
+     float64 bmm pairs on the same classes, timed alone.
+Phases 4, 9, 10 and 12 require, for every core (a batch or chunk), one
+residual launch, two source-table launches and, where the slice header
+turns them on, two deblocking launches and one SAO launch.
 The last two lines are a JSON summary of the kernels (the CABAC kernels
 with phase 6's figures) and the card's nvidia-smi line before a final
 {"ok": true, "device": {...}} line.
@@ -128,6 +145,17 @@ EARLIER_MS = {"luma": 10.203, "chroma": 2.912}
 KERNEL_REPS = 20  # timed launches of each intra kernel (phase 3)
 LF_REPS = 20  # timed launches of each loop-filter kernel (phase 14)
 LF_SOURCE = "heif_tpu_torch/csrc/loopfilter.cu"
+STAGE1_REPS = 20  # timed launches of each stage-1 kernel (phase 15)
+# the stages of heif_tpu.ops.batch._core that the stage-1 kernels stand
+# in for (jnp code that XLA fuses there, no Pallas kernel), their sources
+STAGE1 = {"residual": ("heif_tpu_torch/csrc/residual.cu",
+                       "heif_tpu/ops/batch.py:469"),
+          "ref_sources": ("heif_tpu_torch/csrc/refsrc.cu",
+                          "heif_tpu/ops/batch.py:509")}
+# the H100's int32 multiply-add rate: 132 SMs x 64 int32 lanes (Hopper
+# architecture white paper) x 1.98 GHz boost clock, a multiply-add a lane
+# and clock
+INT32_MACS_PER_MS = 132 * 64 * 1.98e6
 # the stages of heif_tpu.ops.batch._core that the loop-filter kernels
 # stand in for: jnp code that XLA fuses there, no Pallas kernel
 LF_REPLACES = {"deblock": "heif_tpu/ops/batch.py:565",
@@ -167,6 +195,20 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(fn(), its device time in ms by CUDA events): one run, as a plain
+    version's comparison run is timed."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def parse_flagship(data: bytes):
@@ -265,9 +307,10 @@ def intra_calls(bp, dev, n_units: int = 0):
     (ops.intra.pad_schedule)."""
     from heif_tpu_torch.ops import batch as B
     from heif_tpu_torch.ops import intra as I
+    from heif_tpu_torch.ops import residual as RS
 
     d = B.plan_to_device(bp, dev)
-    res = B.residual_planes(d, bp, dev)
+    res = RS.residual_planes(d, bp)
     srcs = B.source_tables(d, bp)
     steps, counts, pcm, sch = d["steps"], d["counts"], d["pcm"], d["schedules"]
     if n_units:
@@ -294,20 +337,12 @@ def check_kernels(label: str, bp, dev) -> dict:
     run, by CUDA events) and bound (walk_bytes over the HBM rate; the
     walk's arithmetic is far below the card's integer rate, so bytes
     bound it)."""
-    import torch
-
     d, sch, calls = intra_calls(bp, dev)
     steps, counts = d["steps"], d["counts"]
     out = {}
     for c, (name, (kern, plain)) in enumerate(calls.items()):
         got = kern()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = plain()
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
+        want, plain_ms = timed_once(plain)
         err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
         diff = sum(int((a != b).sum()) for a, b in zip(got, want))
         ms = cuda_ms(kern, KERNEL_REPS)
@@ -532,16 +567,8 @@ def _kernel_vs_plain(name, kern, plain, n_bytes, card) -> dict:
     its one comparison run. Bound: n_bytes(outputs) at the HBM rate (a
     CABAC step is a few integer operations a lane, far below the card's
     integer rate)."""
-    import torch
-
     got = kern()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = plain()
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
+    want, plain_ms = timed_once(plain)
     err = max_err(name, got, want)
     ms = cuda_ms(kern, 5)
     bound = bound_ms(n_bytes(got))
@@ -742,21 +769,29 @@ def _same_stacks(got, ref, what):
 
 
 def reset_launches() -> None:
-    """Set the intra and loop-filter launch counts to 0."""
+    """Set the launch counts of the core's kernels to 0: residual, source
+    tables, intra walks, loop filters."""
     from heif_tpu_torch.ops import intra as I
     from heif_tpu_torch.ops import loopfilter as LF
+    from heif_tpu_torch.ops import refsrc as RF
+    from heif_tpu_torch.ops import residual as RS
 
     I.reset_launches()
     LF.reset_launches()
+    RS.reset_launches()
+    RF.reset_launches()
 
 
 def _launched(what, header) -> dict:
-    """The intra and loop-filter launch counts since reset_launches();
+    """The launch counts of the core's kernels since reset_launches();
     fail unless both intra kernels ran, and unless every core (one launch
-    of each intra kernel) launched deblocking twice and SAO once where
-    the slice header turns them on."""
+    of each intra kernel) launched the residual kernel once, the source
+    tables twice (luma and chroma worklists), and deblocking twice and
+    SAO once where the slice header turns them on."""
     from heif_tpu_torch.ops import intra as I
     from heif_tpu_torch.ops import loopfilter as LF
+    from heif_tpu_torch.ops import refsrc as RF
+    from heif_tpu_torch.ops import residual as RS
 
     counts = dict(I.LAUNCHES)
     for name, count in counts.items():
@@ -770,7 +805,12 @@ def _launched(what, header) -> dict:
     if dict(LF.LAUNCHES) != want:
         raise SystemExit(f"{what} launched the loop filters {LF.LAUNCHES}, "
                          f"expected {want} for {cores} cores")
-    return {**counts, **want}
+    stage1 = {"residual": cores, "ref_sources": 2 * cores}
+    got = {**RS.LAUNCHES, **RF.LAUNCHES}
+    if got != stage1:
+        raise SystemExit(f"{what} launched the stage-1 kernels {got}, "
+                         f"expected {stage1} for {cores} cores")
+    return {**counts, **want, **stage1}
 
 
 def _device_stacks(chunks):
@@ -966,12 +1006,15 @@ import json, sys
 sys.modules["jax"] = None
 import numpy as np
 from heif_tpu_torch.ops import intra as I
+from heif_tpu_torch.ops import refsrc as RF
+from heif_tpu_torch.ops import residual as RS
 from heif_tpu_torch.parallel import distributed as D
 assert D.init_distributed(backend=sys.argv[3])
 outs, res = D.decode_burst_sharded([open(sys.argv[1], "rb").read()])
 np.savez(sys.argv[2], **outs[0])
 import torch.distributed as dist
-print(json.dumps({"launches": dict(I.LAUNCHES), "burst": res.as_dict(),
+print(json.dumps({"launches": {**I.LAUNCHES, **RS.LAUNCHES, **RF.LAUNCHES},
+                  "burst": res.as_dict(),
                   "backend": dist.get_backend()}))
 dist.destroy_process_group()
 """
@@ -1339,8 +1382,6 @@ def check_filters(label: str, planes, d, bp, timed: bool) -> dict:
     mean over LF_REPS launches and its bound (loopfilter_bytes over the
     HBM rate; a few dozen integer operations a sample are far below the
     card's integer rate, so bytes bound both)."""
-    import torch
-
     from heif_tpu_torch.ops import loopfilter as LF
 
     out = {}
@@ -1348,15 +1389,10 @@ def check_filters(label: str, planes, d, bp, timed: bool) -> dict:
     for name, kern, plain in (("deblock", LF.deblock, LF.deblock_plain),
                               ("sao", LF.sao, LF.sao_plain)):
         got = kern(src, d, bp)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = plain(src, d, bp)
-        end.record()
-        torch.cuda.synchronize()
+        want, plain_ms = timed_once(lambda: plain(src, d, bp))
         err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
         diff = sum(int((a != b).sum()) for a, b in zip(got, want))
-        res = {"max_abs_err": err, "plain_ms": start.elapsed_time(end)}
+        res = {"max_abs_err": err, "plain_ms": plain_ms}
         line = (f"[loopfilter] {label} {name}: max_abs_err={err} "
                 f"mismatches={diff}")
         if timed:
@@ -1416,6 +1452,150 @@ def check_loopfilter(sps, pps, slices, sts, plans, main10_plan, dev,
               f"plain {out[name]['plain_ms']:.2f} ms, bound "
               f"{out[name]['bound_ms']:.4f} ms; every input bit-exact on "
               f"{card}")
+    return out
+
+
+def _bmm_pairs(d, bp):
+    """The eager route's two float64 batched matmuls of every class
+    (recon.residual_class's T^T D and G T) on the same classes' shapes:
+    a call that times them alone, operands made beforehand (the library
+    yardstick of the residual kernel; no path of the port runs it)."""
+    import torch
+
+    from heif_tpu_torch.tables import tables_on
+
+    tables = tables_on(d["steps"][0].device)
+    ops = []
+    for comp, size, coeffs, qp, dst, skip, byp, org in d["classes"]:
+        t = tables.dct(size).to(torch.float64).expand(coeffs.shape[0], size,
+                                                      size)
+        ops.append((t.transpose(1, 2), coeffs.to(torch.float64), t))
+
+    def run():
+        for tt, dd, t in ops:
+            torch.bmm(torch.bmm(tt, dd), t)
+    return run
+
+
+def check_stage1_kernels(label, d, bp, geometry, timed: bool) -> dict:
+    """The residual kernel (ops.residual.residual_planes) and the source
+    tables kernel (ops.refsrc.ref_sources, both worklists: luma and
+    chroma, as core calls it) against their plain versions on the same
+    device inputs, bit for bit. geometry: (W, H, ctb_log2, tile_col_bd,
+    tile_row_bd) of the worklists, or None where d has no worklist (a
+    residual fuzz case); a d without classes (a source fuzz case) checks
+    only the source tables. Per kernel the largest error and the plain
+    version's comparison run (CUDA events); timed: the kernel's mean over
+    STAGE1_REPS launches (both worklists for the source tables), its
+    bound (residual: the larger of its bytes at the HBM rate and its
+    multiply-adds at the int32 rate; source tables: bytes) and, for the
+    residual, the eager route's float64 bmm pairs timed alone."""
+    from heif_tpu_torch.ops import refsrc as RF
+    from heif_tpu_torch.ops import residual as RS
+
+    out = {}
+    calls = {}
+    if d["classes"] or geometry is None:
+        calls["residual"] = (lambda: RS.residual_planes(d, bp),
+                             lambda: RS.residual_plain(d, bp))
+    if geometry is not None:
+        W, H, ctb_log2, cols, rows = geometry
+        kw = [dict(comp=c, W=W, H=H, ctb_log2=ctb_log2, tile_col_bd=cols,
+                   tile_row_bd=rows) for c in range(2)]
+        steps = d["steps"][:2]
+        calls["ref_sources"] = (
+            lambda: [RF.ref_sources(st, **k) for st, k in zip(steps, kw)],
+            lambda: [RF.ref_sources_plain(st, **k)
+                     for st, k in zip(steps, kw)])
+    for name, (kern, plain) in calls.items():
+        got = kern()
+        want, plain_ms = timed_once(plain)
+        err = max_err(f"{label} {name}", got, want)
+        res = {"max_abs_err": err, "plain_ms": plain_ms}
+        line = f"[stage1] {label} {name}: max_abs_err={err}"
+        if timed:
+            res["ms"] = cuda_ms(kern, STAGE1_REPS)
+            if name == "residual":
+                n_bytes, n_ops = RS.residual_bytes(d, bp), RS.residual_macs(d, bp)
+                by_bytes = bound_ms(n_bytes)
+                by_ops = n_ops / INT32_MACS_PER_MS
+                res["bound_ms"] = max(by_bytes, by_ops)
+                res["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+                res["library_ms"] = cuda_ms(_bmm_pairs(d, bp), STAGE1_REPS)
+                extra = (f"; {n_bytes} B ({by_bytes:.4f} ms), {n_ops} "
+                         f"multiply-adds ({by_ops:.4f} ms); float64 bmm pairs "
+                         f"{res['library_ms']:.4f} ms")
+            else:
+                n_bytes = sum(RF.refsrc_bytes(st) for st in steps)
+                res["bound_ms"] = bound_ms(n_bytes)
+                res["bound_by"] = "bytes"
+                res["library_ms"] = None
+                extra = f"; {n_bytes} B"
+            line += (f"; kernel {res['ms']:.4f} ms (mean of {STAGE1_REPS}), "
+                     f"plain {plain_ms:.2f} ms, bound {res['bound_ms']:.4f} ms "
+                     f"({res['bound_by']}){extra}")
+        print(line)
+        if err:
+            raise SystemExit(f"{label}: the {name} kernel disagrees with its "
+                             "plain version")
+        out[name] = res
+    return out
+
+
+def check_stage1(sps, pps, slices, sts, plans, main10_plan, dev, card) -> dict:
+    """Phase 15: the stage-1 kernels against their plain versions on a
+    flagship chunk (timed: the main path's shape), the Main-10 grid's plan
+    (timed), the synthetic 10-bit PCM batch and the tall HEVC-tiles batch
+    (plans: phase 3's), then on every case of utils.residual_fuzz and
+    utils.refsrc_fuzz. Returns per kernel the flagship chunk's numbers
+    with the largest error over all inputs."""
+    import torch
+
+    from heif_tpu_torch.ops import batch as B
+    from heif_tpu_torch.utils import refsrc_fuzz as RFF
+    from heif_tpu_torch.utils import residual_fuzz as RSF
+
+    def geometry(p):
+        return p.width, p.height, p.ctb_log2, p.tile_col_bd, p.tile_row_bd
+
+    chunk = B.schedule_hints(None, sps, pps, len(slices))["chunk"]
+    bp = B.pack_batch(sts[:chunk], sps, pps, slices[:chunk])
+    out = check_stage1_kernels(
+        f"flagship chunk {bp.n}x{bp.height}x{bp.width} CTB {1 << bp.ctb_log2}",
+        B.plan_to_device(bp, dev), bp, geometry(bp), True)
+
+    def fold(res):
+        for name, r in res.items():
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                           r["max_abs_err"])
+
+    for label, p, timed in (
+        (f"main-10 grid {main10_plan.n}x{main10_plan.height}x"
+         f"{main10_plan.width} CTB {1 << main10_plan.ctb_log2}", main10_plan,
+         True),
+        (f"synthetic {plans['synth'].n}x{plans['synth'].height}x"
+         f"{plans['synth'].width} 10-bit+PCM", plans["synth"], False),
+        (f"tall {plans['tall'].n}x{plans['tall'].height}x"
+         f"{plans['tall'].width} in 2x2 HEVC tiles", plans["tall"], False),
+    ):
+        fold(check_stage1_kernels(label, B.plan_to_device(p, dev), p,
+                                  geometry(p), timed))
+    for case in RSF.CASES:
+        fold(check_stage1_kernels(
+            f"residual fuzz seed {case.seed} {case.n}x{case.height}x"
+            f"{case.width}", RSF.tensors(case, dev), case, None, False))
+    for case in RFF.CASES:
+        steps = torch.from_numpy(RFF.inputs(case)).to(dev)
+        d = {"classes": [], "scaling": {}, "steps": [steps, steps]}
+        fold(check_stage1_kernels(
+            f"source fuzz seed {case.seed} {case.n}x{case.steps} steps "
+            "(as luma and as chroma)", d, case,
+            (case.width, case.height, case.ctb_log2, case.tile_col_bd,
+             case.tile_row_bd), False))
+    for name, r in out.items():
+        print(f"[stage1] {name}: flagship chunk {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); every input bit-exact on {card}")
     return out
 
 
@@ -1557,6 +1737,12 @@ def main() -> int:
                           card)
     print(f"[loopfilter] phase took {time.perf_counter() - t0:.1f} s")
 
+    # phase 15: the stage-1 kernels against their plain versions
+    t0 = time.perf_counter()
+    stage1 = check_stage1(sps, pps, slices, sts, plans, main10["plan"], dev,
+                          card)
+    print(f"[stage1] phase took {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name, replaces in (("luma", "heif_tpu/ops/pallas_intra.py:420"),
                            ("chroma", "heif_tpu/ops/pallas_intra.py:647")):
@@ -1601,6 +1787,15 @@ def main() -> int:
             "max_abs_err": lf[name]["max_abs_err"], "ms": lf[name]["ms"],
             "plain_ms": lf[name]["plain_ms"], "bound_ms": lf[name]["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
+        })
+    for name, (source, replaces) in STAGE1.items():
+        r = stage1[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

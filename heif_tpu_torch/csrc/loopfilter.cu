@@ -199,7 +199,10 @@ __device__ __forceinline__ void deblock_window(const DeblockArgs& a, int comp,
   const int x0 = 8 * c - 4;
   const int j0 = max(0, -x0);
   const int j1 = min(8, len - x0);
-  const bool edge = c >= 1 && c <= (len >> 3) - 1;
+  // an edge at every multiple of 8 below len (§8.7.2); a chroma plane
+  // whose len is 4 past a multiple of 8 has a last, partial window, of
+  // which chroma reads only p1 p0 q0 q1
+  const bool edge = c >= 1 && 8 * c < len;
   if (!VERT && !edge) return;  // in place: nothing to copy
   const int32_t* in = pl.in + t * pl.sn;
   int32_t* out = pl.out + (long long)t * pl.h * pl.w;

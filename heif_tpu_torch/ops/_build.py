@@ -39,6 +39,7 @@ _lib = None
 build_seconds = 0.0  # wall time of the build that produced the loaded library
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ip = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # plane, res, pcm, steps, src, counts, units, n, S, U, HP, WP, HR, WR,
     # bd, strong, ctb_log2, stream
@@ -62,6 +63,12 @@ _SIGNATURES = {
     # y, cb, cr, y_in, cb_in, cr_in, strides as above, sao, nf, n, H, W,
     # R, C, ctb_log2, bd_y, bd_c, stream
     "heif_sao": [_vp] * 6 + [_ll] * 6 + [_vp] * 2 + [_i] * 8 + [_vp],
+    # classes (ResClass array), n_classes, level_scale, dct4, dct8, dct16,
+    # dct32, dst4, stream
+    "heif_residual": [_vp, _i] + [_vp] * 7,
+    # steps, out, n, S, F, comp, W, H, ctb_log2, col_bd, n_col, row_bd,
+    # n_row, stream
+    "heif_ref_sources": [_vp] * 2 + [_i] * 7 + [_ip, _i, _ip, _i, _vp],
 }
 
 

@@ -10,9 +10,11 @@ tests/test_torch_overlap.py hold the copy against the original.
 
 Device half (torch): `core` is the port of heif_tpu.ops.batch._core.
 Transform classes are flattened across tiles (one dense [k, s, s] batch
-per (component, size) class), the intra walks run all tiles at once
-(one CUDA block per tile), and deblock / SAO run over the tile axis
-(ops.loopfilter: two deblocking launches and one SAO launch a batch).
+per (component, size) class) and go through one residual launch
+(ops.residual), the reference-source tables take one launch a worklist
+(ops.refsrc), the intra walks run all tiles at once (one CUDA block per
+tile), and deblock / SAO run over the tile axis (ops.loopfilter: two
+deblocking launches and one SAO launch a batch).
 
 Entry points: reconstruct_tiles (all tiles of an image in one batch, the
 path of HeicDecoder.decode) and the bulk paths, which cut the tiles into
@@ -38,7 +40,8 @@ from heif_tpu_torch.device import resolve_device
 from heif_tpu_torch.ops import intra as I
 from heif_tpu_torch.ops import loopfilter as LF
 from heif_tpu_torch.ops import recon as R
-from heif_tpu_torch.tables import tables_on
+from heif_tpu_torch.ops import refsrc as RF
+from heif_tpu_torch.ops import residual as RS
 
 PAD = R.PAD
 
@@ -534,22 +537,6 @@ def plan_to_device(bp: BatchPlan, device: torch.device) -> dict:
     return d
 
 
-def residual_planes(d: dict, bp: BatchPlan, device: torch.device) -> list:
-    """Stage 1: every transform class dequantised and inverse-transformed,
-    then scattered into [N, h+PAD, w+PAD] int32 planes per component."""
-    tables = tables_on(device)
-    H, W = bp.height, bp.width
-    dims = [(H, W), (H // 2, W // 2), (H // 2, W // 2)]
-    classes = []
-    for comp, size, coeffs, qp, dst, skip, byp, org in d["classes"]:
-        r = R.residual_class(
-            coeffs, qp, dst, skip, byp, d["scaling"][(size, comp)], size,
-            bp.bit_depth_y if comp == 0 else bp.bit_depth_c, tables,
-        )
-        classes.append((comp, size, r, org))
-    return R.scatter_classes(classes, bp.n, dims, device)
-
-
 def walk_ctb_log2(bp: BatchPlan, comp: int) -> int:
     """log2 of the CTB size in samples of component comp (4:2:0)."""
     return bp.ctb_log2 - (1 if comp else 0)
@@ -572,15 +559,15 @@ def unit_tables(d: dict, bp: BatchPlan) -> list:
 
 
 def source_tables(d: dict, bp: BatchPlan) -> list:
-    """[luma, chroma] reference-source tables [N, S, 2, 65] uint8. Cb and
-    Cr share TU geometry and intra mode (one intra_chroma_pred_mode per
-    PU), so one chroma worklist and one table serve both planes."""
-    steps = d["steps"]
+    """[luma, chroma] reference-source tables [N, S, 2, 65] uint8
+    (ops.refsrc: one kernel launch each on CUDA). Cb and Cr share TU
+    geometry and intra mode (one intra_chroma_pred_mode per PU), so one
+    chroma worklist and one table serve both planes."""
     return [
-        R.ref_sources(
-            steps[c][..., 0], steps[c][..., 1], steps[c][..., 2],
-            comp=c, W=bp.width, H=bp.height, ctb_log2=bp.ctb_log2,
-            tile_col_bd=bp.tile_col_bd, tile_row_bd=bp.tile_row_bd,
+        RF.ref_sources(
+            d["steps"][c], comp=c, W=bp.width, H=bp.height,
+            ctb_log2=bp.ctb_log2, tile_col_bd=bp.tile_col_bd,
+            tile_row_bd=bp.tile_row_bd,
         )
         for c in range(2)
     ]
@@ -596,11 +583,11 @@ def core(d: dict, bp: BatchPlan, device: torch.device, stats=None) -> list:
     Hc, Wc = H // 2, W // 2
     bd_y, bd_c = bp.bit_depth_y, bp.bit_depth_c
 
-    # ---- stage 1: residuals ----
+    # ---- stage 1: residuals (one launch on CUDA) ----
     with _stage(stats, "residual", device):
-        res = residual_planes(d, bp, device)
+        res = RS.residual_planes(d, bp)
 
-    # ---- stage 2: intra walks ----
+    # ---- stage 2: source tables (two launches on CUDA), intra walks ----
     with _stage(stats, "intra", device):
         steps, counts, pcm, sch = (d["steps"], d["counts"], d["pcm"],
                                    d["schedules"])

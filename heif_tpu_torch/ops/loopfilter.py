@@ -192,8 +192,10 @@ def deblock_plain(planes, d: dict, bp) -> list:
     ).transpose(1, 2)
     out = [y]
 
-    ccols = ar(Wc // 8 - 1, 4, 4)
-    crows = ar(Hc // 8 - 1, 4, 4)
+    # chroma edges at every multiple of 8 below Wc and Hc (§8.7.2), the
+    # last one too where a chroma dimension is not a multiple of 8
+    ccols = ar((Wc - 1) // 8, 4, 4)
+    crows = ar((Hc - 1) // 8, 4, 4)
     lut = tables.chroma_qp_lut
     for ci, c_off in ((1, bp.cb_qp_off), (2, bp.cr_qp_off)):
         qp_avg = (qp[:, :, ccols - 1] + qp[:, :, ccols] + 1) >> 1

@@ -7,9 +7,11 @@ arithmetic (spec >>), as in the reference.
 
 - residual_class / scatter_classes: dequant + two exact float64 batched
   matmuls per (component, size) class, then a block row-scatter into
-  [N, h+PAD, w+PAD] residual planes.
+  [N, h+PAD, w+PAD] residual planes: composed, the plain version of the
+  residual kernel (ops.residual) and its oracle.
 - ref_sources: the [..., 2, 65] uint8 reference-source table of every TU
-  (availability + substitution), computed on the device.
+  (availability + substitution): the plain version of the source-table
+  kernel (ops.refsrc) and its oracle.
 - intra_scan_component: the plain intra walk, one Python step per TU
   index for all N tiles at once. It is the CPU path and the oracle the
   CUDA kernels (ops.intra) are held against.
@@ -91,7 +93,8 @@ def scatter_classes(classes, n: int, dims, device, pad: int = PAD) -> list:
     where org is the flat origin tile * (h+pad)*(w+pad) + y*(w+pad) + x
     (negative for cap-padding rows). dims: [(h, w)] per component.
     TUs are size-aligned (HEVC quadtree), so each class maps onto a dense
-    [n*gh*gw, s*s] slot grid: a row-scatter of whole blocks, then
+    [n*gh*gw, s*s] slot grid (gh, gw: the plane's size in blocks, rounded
+    up): a row-scatter of whole blocks, then
     depth-to-space. Classes never overlap, so their planes add.
     Returns [N, h+pad, w+pad] int32 planes per component.
     """
@@ -99,7 +102,10 @@ def scatter_classes(classes, n: int, dims, device, pad: int = PAD) -> list:
            for h, w in dims]
     for comp, size, r, org in classes:
         h, w = dims[comp]
-        gh, gw = h // size, w // size
+        # a plane need not be a multiple of the block size (72 = 2*32 + 8):
+        # the slot grid rounds up, and the part past the plane is cut off
+        # (a TU never crosses the picture's edge)
+        gh, gw = -(-h // size), -(-w // size)
         stride = (h + pad) * (w + pad)
         org = org.to(torch.int64)
         ti = org // stride
@@ -116,9 +122,9 @@ def scatter_classes(classes, n: int, dims, device, pad: int = PAD) -> list:
             grid[: n * gh * gw]
             .reshape(n, gh, gw, size, size)
             .permute(0, 1, 3, 2, 4)
-            .reshape(n, h, w)
+            .reshape(n, gh * size, gw * size)
         )
-        out[comp][:, :h, :w] += plane
+        out[comp][:, :h, :w] += plane[:, :h, :w]
     return out
 
 
@@ -497,11 +503,18 @@ def deblock_luma_pass(plane, edge_present, qp_p, qp_q, nf_p, nf_q,
 def deblock_chroma_pass(plane, edge_present, qpc, nf_p, nf_q, tc_off: int,
                         bd: int, tables: ReconTables) -> torch.Tensor:
     """One direction of chroma deblocking in 2-line units over [N, hc, wc]
-    planes; edges every 8 chroma columns. edge_present / qpc / nf:
-    [N, hc//2, wc//8-1]. Port of jax_recon._deblock_chroma_pass."""
+    planes; an edge at every multiple of 8 chroma columns below wc
+    (§8.7.2), the last one too when wc is not a multiple of 8.
+    edge_present / qpc / nf: [N, hc//2, (wc-1)//8]. Only p1, p0, q0 and q1
+    are read and only p0 and q0 written, so each edge takes the 4 columns
+    around it, which lie inside the plane (wc is a multiple of 4). Port of
+    jax_recon._deblock_chroma_pass, which stops one edge short of the
+    spec's last where wc is not a multiple of 8."""
     n, h, w = plane.shape
-    ne = w // 8 - 1
-    seg = plane[:, :, 6 : 6 + ne * 8].reshape(n, h // 2, 2, ne, 8).permute(0, 1, 3, 2, 4)
+    ne = (w - 1) // 8
+    cols = 8 * torch.arange(1, ne + 1, device=plane.device)
+    seg = plane[:, :, cols[:, None] + torch.arange(-2, 2, device=plane.device)]
+    seg = seg.reshape(n, h // 2, 2, ne, 4).permute(0, 1, 3, 2, 4)
     p1, p0, q0, q1 = seg[..., 0], seg[..., 1], seg[..., 2], seg[..., 3]
     tc = tables.tc[(qpc + 2 + tc_off).clamp(0, 53).long()] << (bd - 8)
     mxv = (1 << bd) - 1
@@ -510,13 +523,9 @@ def deblock_chroma_pass(plane, edge_present, qpc, nf_p, nf_q, tc_off: int,
     fm = (edge_present & (tc > 0))[..., None]
     np0 = torch.where(fm & ~nf_p[..., None], (p0 + delta).clamp(0, mxv), p0)
     nq0 = torch.where(fm & ~nf_q[..., None], (q0 - delta).clamp(0, mxv), q0)
-    out = torch.stack(
-        [p1, np0, nq0, q1, seg[..., 4], seg[..., 5], seg[..., 6], seg[..., 7]],
-        dim=-1,
-    )
-    out = out.permute(0, 1, 3, 2, 4).reshape(n, h, ne * 8)
     plane = plane.clone()
-    plane[:, :, 6 : 6 + ne * 8] = out
+    plane[:, :, cols - 1] = np0.permute(0, 1, 3, 2).reshape(n, h, ne)
+    plane[:, :, cols] = nq0.permute(0, 1, 3, 2).reshape(n, h, ne)
     return plane
 
 

@@ -8,9 +8,10 @@ decoded stream rarely does, in the layouts batch.plan_to_device ships:
 - planes of 8x8 patches, half of them flat, plus noise, so that every
   deblocking decision (off, weak with and without p1/q1, strong) and
   every SAO edge category occurs; bit depths 8 and 10 (one case mixes
-  them); non-square pictures, one with chroma planes of 36x20 (one
-  chroma edge column, and samples past the last 8-sample group on both
-  axes) and one with no chroma edge at all;
+  them); non-square pictures, three with chroma planes that are not a
+  multiple of 8 on either axis (36x20, 20x68 and 12x8: the last chroma
+  edge, at 8 * floor(size / 8), has only 4 samples on its q side) and
+  one, 12x8, with no vertical chroma edge at all;
 - CTB 16, 32 and 64, most with a partial last CTB row or column, one
   picture lower than its CTB;
 - edge maps with every 4x4 position set or clear at random (the filters
@@ -29,8 +30,9 @@ decoded stream rarely does, in the layouts batch.plan_to_device ships:
 
 Numpy only; the same case gives the same arrays everywhere
 (tests/test_torch_loopfilter_stage.py holds the plain versions against
-heif_tpu's JAX stage on them, the card tests and chip_smoke.py the
-kernels against the plain versions).
+heif_tpu's JAX stage on them, and the chroma of the cases with a partial
+last chroma edge, which that stage skips, against ops.ref_recon; the card
+tests and chip_smoke.py hold the kernels against the plain versions).
 """
 
 from __future__ import annotations
@@ -62,7 +64,8 @@ class Case:
 
 CASES = (
     Case(1, 2, 48, 80, 4),                          # CTB 16, whole CTBs
-    Case(2, 2, 72, 40, 5, 10, 10, 6, -4, -12, 12),  # CTB 32, partial, tall
+    Case(2, 2, 72, 40, 5, 10, 10, 6, -4, -12, 12),  # CTB 32, partial, tall;
+    # chroma 36x20: edge rows 8-32, edge columns 8 and 16, both last partial
     Case(3, 1, 40, 136, 6, 10, 10, -12, 12, 12, -12),  # CTB 64, wide
     Case(4, 3, 64, 64, 4, 8, 8, 12, 12, 5, -7),
     Case(5, 2, 56, 48, 5, 10, 10, -6, 6, deblock_disabled=True,
@@ -70,7 +73,8 @@ CASES = (
     Case(6, 2, 32, 96, 6, 8, 8, 4, -12, sao_luma=False),  # lower than a CTB
     Case(7, 1, 48, 48, 5, 8, 10, -2, 2, 3, 3, sao_luma=False,
          sao_chroma=False),                         # SAO off
-    Case(8, 2, 24, 16, 4, 10, 10, 2, 4, -1, 1),     # no chroma edge
+    Case(8, 2, 24, 16, 4, 10, 10, 2, 4, -1, 1),     # chroma 12x8: one
+    # edge row (8, partial), no edge column
 )
 
 _QP_ENDS = (0, 15, 16, 17, 18, 50, 51)

@@ -44,6 +44,14 @@ On a card (`cuda`-marked; each skips without one):
   and on the synthetic 10-bit PCM batch's intra planes; every fixture
   kind's decode launches deblocking twice and SAO once where its slice
   header turns them on;
+- the residual and source-table kernels (ops.residual, ops.refsrc) vs
+  their plain versions on every seeded case of utils.residual_fuzz and
+  utils.refsrc_fuzz and on a tall 2x2-tiled PCM plan; core on CUDA
+  launches the residual kernel once and the source tables twice and runs
+  no plain stage-1 op; every fixture kind's decode launches them so;
+- the edge kinds (`edge72`, `edge1080_main10`, `edge40x200_wpp`: committed
+  x265 streams with a side of 8 (mod 16), so a partial last chroma
+  deblocking edge) through decode and decode_hevc, equal to backend="ref";
 - tools.bench_e2e.run on `grid_irot` with windows of 0 s: its guard
   passes (e2e and decode-to-device planes bit-exact), both intra kernels
   launch, and its line has bench.py's keys.
@@ -70,12 +78,17 @@ from heif_tpu_torch.ops import cabac as C
 from heif_tpu_torch.ops import cabac_gen as G
 from heif_tpu_torch.ops import intra as I
 from heif_tpu_torch.ops import loopfilter as LF
+from heif_tpu_torch.ops import recon as R
+from heif_tpu_torch.ops import refsrc as RF
+from heif_tpu_torch.ops import residual as RS
 from heif_tpu_torch.ops.ref_recon import reconstruct_tile
 from heif_tpu_torch.tools import bench_device_entropy as BDE
 from heif_tpu_torch.tools import bench_e2e, image_slices
 from heif_tpu_torch.utils import cabac_fuzz as F
 from heif_tpu_torch.utils import hevc_synth
 from heif_tpu_torch.utils import loopfilter_fuzz as LFF
+from heif_tpu_torch.utils import refsrc_fuzz as RFF
+from heif_tpu_torch.utils import residual_fuzz as RSF
 from heif_tpu_torch.utils.annexb import tile_annexb
 from heif_tpu_torch.utils.heif_mux import mux_heic
 from heif_tpu_torch.utils.synthetic import synthetic_batch
@@ -83,6 +96,9 @@ from heif_tpu_torch.utils.synthetic import synthetic_batch
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests" / "assets" / "torch"
 KINDS = ["tiles", "pcm_window", "8bit", "main10", "mono", "grid_irot"]
+# committed x265 streams with a side of 8 (mod 16), so a partial last
+# chroma deblocking edge (tests/test_torch_fixtures.py: EDGE_STREAMS)
+EDGE_KINDS = ["edge72", "edge1080_main10", "edge40x200_wpp"]
 TILE = 1  # flagship tile (grid order) of the CABAC and decode tests
 PREFIX = 512  # bins (replays) / steps (generator) of the plain comparison
 
@@ -124,7 +140,7 @@ def test_intra_kernels_match_plain_walks(cuda):
     bp = B.pack_batch(*synthetic_batch(n=4, size=128, bd=10, pcm=True,
                                        strong_smoothing=True, seed=7))
     d = B.plan_to_device(bp, cuda)
-    res = B.residual_planes(d, bp, cuda)
+    res = RS.residual_planes(d, bp)
     srcs = B.source_tables(d, bp)
     steps, counts, pcm, sch = d["steps"], d["counts"], d["pcm"], d["schedules"]
     luma = dict(h=bp.height, w=bp.width, strong_smoothing=bp.strong_smoothing,
@@ -261,13 +277,13 @@ def _same_planes(got, want, kind):
         if k != "Y" and kind == "mono":
             assert got[k] is None and want[k] is None, k
             continue
-        dt = np.uint16 if kind == "main10" else np.uint8
+        dt = np.uint16 if "main10" in kind else np.uint8
         assert got[k].dtype == want[k].dtype == dt, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + EDGE_KINDS)
 def test_decode_fixture_on_card_equals_ref(cuda, kind):
     heic = _container(kind)
     I.reset_launches()
@@ -280,7 +296,7 @@ def test_decode_fixture_on_card_equals_ref(cuda, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("entropy", ["auto", "device-gen"])
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + EDGE_KINDS)
 def test_decode_hevc_fixture_on_card_equals_ref(cuda, kind, entropy):
     stream = _streams(kind)[0]
     if kind == "tiles" and entropy == "device-gen":
@@ -395,7 +411,7 @@ def test_loopfilter_kernels_on_intra_planes(cuda):
     bp = B.pack_batch(*synthetic_batch(n=4, size=128, bd=10, pcm=True,
                                        strong_smoothing=True, seed=7))
     d = B.plan_to_device(bp, cuda)
-    res = B.residual_planes(d, bp, cuda)
+    res = RS.residual_planes(d, bp)
     srcs = B.source_tables(d, bp)
     steps, counts, pcm, sch = d["steps"], d["counts"], d["pcm"], d["schedules"]
     y = I.intra_scan_luma(res[0], steps[0], srcs[0], counts[0], pcm[0],
@@ -424,6 +440,92 @@ def test_decode_fixture_launches_loop_filter_kernels(cuda, kind):
     assert LF.LAUNCHES == {
         "deblock": 0 if h.slice_deblocking_filter_disabled_flag else 2,
         "sao": int(h.slice_sao_luma_flag or h.slice_sao_chroma_flag)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS + EDGE_KINDS)
+def test_decode_fixture_launches_stage1_kernels(cuda, kind):
+    """One core a decode: one residual launch where any TU has
+    coefficients (every x265 kind; not the synthetic all-PCM picture and
+    tiled stream), two source-table launches (luma and chroma
+    worklists)."""
+    sps, pps, slices, _ = image_slices(_container(kind))
+    bp = B.pack_batch(native.decode_tiles_parallel(sps, pps, slices), sps,
+                      pps, slices)
+    RS.reset_launches()
+    RF.reset_launches()
+    HeicDecoder.decode(_container(kind), device=cuda)
+    assert RS.LAUNCHES == {"residual": int(bool(bp.tc_coeffs))}
+    assert bool(bp.tc_coeffs) == (kind not in ("tiles", "pcm_window"))
+    assert RF.LAUNCHES == {"ref_sources": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RSF.CASES, ids=lambda c: f"seed{c.seed}")
+def test_residual_kernel_matches_plain_on_fuzz(cuda, case):
+    """utils.residual_fuzz: every class, DST, skip, bypass, cap-padding
+    rows, flat / default / random scaling lists, bit depths 8-12, qp
+    0-63, saturated levels that wrap, planes not a multiple of 32."""
+    d = RSF.tensors(case, cuda)
+    RS.reset_launches()
+    got = RS.residual_planes(d, case)
+    assert RS.LAUNCHES == {"residual": 1}
+    _same(got, RS.residual_plain(d, case))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RFF.CASES, ids=lambda c: f"seed{c.seed}")
+def test_refsrc_kernel_matches_plain_on_fuzz(cuda, case):
+    """utils.refsrc_fuzz: TUs of every size at the picture's edges and
+    corners, padding steps, CTB 16-64, luma and chroma, up to a tile a
+    CTB."""
+    steps = torch.from_numpy(RFF.inputs(case)).to(cuda)
+    kw = dict(comp=case.comp, W=case.width, H=case.height,
+              ctb_log2=case.ctb_log2, tile_col_bd=case.tile_col_bd,
+              tile_row_bd=case.tile_row_bd)
+    RF.reset_launches()
+    got = RF.ref_sources(steps, **kw)
+    assert RF.LAUNCHES == {"ref_sources": 1}
+    want = RF.ref_sources_plain(steps, **kw)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_core_runs_the_stage1_kernels_and_no_plain_op(cuda, monkeypatch):
+    """Tall pictures in 2x2 HEVC tiles with PCM blocks: both stage-1
+    kernels equal their plain versions on the plan; then core on CUDA
+    launches the residual kernel once and the source tables twice, runs
+    none of recon.residual_class, scatter_classes and ref_sources, and
+    gives the CPU core's planes."""
+    import dataclasses
+
+    bp = B.pack_batch(*synthetic_batch(n=2, size=128, height=256, bd=10,
+                                       pcm=True, seed=13))
+    bp = dataclasses.replace(bp, tile_col_bd=(64,), tile_row_bd=(128,))
+    d = B.plan_to_device(bp, cuda)
+    _same(RS.residual_planes(d, bp), RS.residual_plain(d, bp))
+    for c, got in enumerate(B.source_tables(d, bp)):
+        want = RF.ref_sources_plain(d["steps"][c], comp=c, W=bp.width,
+                                    H=bp.height, ctb_log2=bp.ctb_log2,
+                                    tile_col_bd=bp.tile_col_bd,
+                                    tile_row_bd=bp.tile_row_bd)
+        assert torch.equal(got, want), c
+    cpu = torch.device("cpu")
+    want = B.core(B.plan_to_device(bp, cpu), bp, cpu)
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain stage-1 op ran on the card")
+
+    for name in ("residual_class", "scatter_classes", "ref_sources"):
+        monkeypatch.setattr(R, name, refuse)
+    RS.reset_launches()
+    RF.reset_launches()
+    got = B.core(d, bp, cuda)
+    assert RS.LAUNCHES == {"residual": 1}
+    assert RF.LAUNCHES == {"ref_sources": 2}
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.cuda

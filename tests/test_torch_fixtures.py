@@ -7,6 +7,9 @@ of the encoder binding (heif_tpu_torch.utils.x265enc), and committed:
 - 8bit.hevc, main10.hevc, mono.hevc and grid_0.hevc .. grid_3.hevc: the
   x265 kinds of test_torch_decode.py's _container, from the same seeded
   planes (its _x265_planes, seeded by default_rng(len(kind)));
+- edge72.hevc, edge1080_main10.hevc and edge40x200_wpp.hevc (EDGE_STREAMS):
+  pictures of 8 (mod 16) samples on one side or both, from the same planes
+  function seeded by default_rng(height);
 - main10_grid_4032x3024.heic: the flagship's 48 coded 512x512 tiles, each
   decoded by the port (backend="ref", device="cpu"), shifted left by 2 to
   10 bits, encoded at GRID_QP (CTB 64, WPP) and muxed as a 6x8 grid of
@@ -24,7 +27,13 @@ Here, tolerance 0 throughout:
 - each small-fixture container, muxed by the port, decodes on
   device="cpu" equal to heif_tpu's decode(backend="ref");
 - the Main-10 grid: probe equals heif_tpu's, and tiles 0 and 47 through
-  decode_hevc(device="cpu") equal heif_tpu's decode_hevc.
+  decode_hevc(device="cpu") equal heif_tpu's decode_hevc;
+- the edge streams (EDGE_STREAMS: 72x72 8-bit; 1080x128 Main 10 at CTB 16
+  with chroma QP offsets; 40x200 with WPP), whose chroma planes are not a
+  multiple of 8 on one side or both: decode_hevc(device="cpu") equals
+  backend="ref" and libde265. heif_tpu's own batched backend is no
+  oracle there: its residual scatter raises on planes that are not a
+  multiple of 32, and its deblocking skips the last chroma edge.
 
 Regenerate every file and the manifest (only where libx265 exists; it is
 never downloaded):
@@ -74,7 +83,28 @@ def small_sources() -> dict:
             seed=4, planes=f"draw {i} of x265_planes(default_rng(4), 64, 96)"
                            f" in order; tile {i} of a grid {SMALL_GRID}, "
                            "irot 1"))
+    # pictures with a side of 8 (mod 16), so a chroma side that is not a
+    # multiple of 8: the last chroma deblocking edge has only 4
+    # samples on its q side, and the planes are not a multiple of 32
+    for name, (h, w, kw, opts, note) in EDGE_STREAMS.items():
+        rng = np.random.default_rng(h)
+        bd = kw.get("bit_depth", 8)
+        out[name] = (x265_planes(rng, h, w, bd), dict(kw, options=opts),
+                     dict(seed=h, planes=f"x265_planes(default_rng({h}), "
+                                         f"{h}, {w}, bd={bd}); {note}"))
     return out
+
+
+# name: (height, width, encode_i_frame keywords, x265 options, note)
+EDGE_STREAMS = {
+    "edge72.hevc": (72, 72, dict(qp=30), None, "8-bit, CTB 64"),
+    "edge1080_main10.hevc": (
+        1080, 128, dict(qp=30, bit_depth=10),
+        {"ctu": "16", "cbqpoffs": "5", "crqpoffs": "-4"},
+        "Main 10, CTB 16, WPP, chroma QP offsets +5 / -4"),
+    "edge40x200_wpp.hevc": (40, 200, dict(qp=32), {"wpp": "1", "ctu": "32"},
+                            "8-bit, CTB 32, WPP"),
+}
 
 
 def grid_planes() -> list:
@@ -221,6 +251,30 @@ def test_small_container_decodes_as_heif_tpu(kind):
             continue
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_STREAMS))
+def test_edge_stream_decodes_as_ref_and_libde265(name):
+    """A picture of 8 (mod 16) samples on a side: decode_hevc on the CPU
+    equals backend="ref" and libde265 sample for sample, the last chroma
+    deblocking edge (at 8 * floor(size / 8) chroma samples) included."""
+    from heif_tpu_torch import HeicDecoder
+    from heif_tpu_torch.utils import oracle
+
+    stream = (ASSETS / name).read_bytes()
+    h, w = EDGE_STREAMS[name][:2]
+    got = HeicDecoder.decode_hevc(stream, device="cpu")
+    ref = HeicDecoder.decode_hevc(stream, backend="ref", device="cpu")
+    de265 = oracle.decode_hevc_annexb(stream)
+    assert got["Y"].shape == (h, w) and ((h // 2) % 8 or (w // 2) % 8)
+    opts = EDGE_STREAMS[name][3] or {}
+    assert 1 << got["sps"].ctb_log2_size_y == int(opts.get("ctu", 64))
+    assert (got["pps"].pps_cb_qp_offset, got["pps"].pps_cr_qp_offset) == (
+        int(opts.get("cbqpoffs", 0)), int(opts.get("crqpoffs", 0)))
+    for i, k in enumerate(("Y", "Cb", "Cr")):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=f"{k} vs ref")
+        np.testing.assert_array_equal(got[k], de265[i],
+                                      err_msg=f"{k} vs libde265")
 
 
 def test_main10_grid_probe_equals_heif_tpu():

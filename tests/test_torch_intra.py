@@ -32,6 +32,7 @@ from heif_tpu.ops import pallas_intra as PI
 from heif_tpu_torch.ops import batch as TB
 from heif_tpu_torch.ops import intra as I
 from heif_tpu_torch.ops import recon as R
+from heif_tpu_torch.ops import residual as RS
 from heif_tpu_torch.tables import ReconTables
 from heif_tpu_torch.utils.synthetic import synthetic_batch
 
@@ -63,7 +64,7 @@ def flagship(halfmoonbay_bytes):
 def _inputs(bp):
     """Device dict, residual planes and source tables of a plan (CPU)."""
     d = TB.plan_to_device(bp, CPU)
-    return d, TB.residual_planes(d, bp, CPU), TB.source_tables(d, bp)
+    return d, RS.residual_planes(d, bp), TB.source_tables(d, bp)
 
 
 def _jax_src(bp, comp, **tiles):
@@ -305,7 +306,7 @@ def test_cuda_kernels_match_plain_walk(cuda_device, bd, pcm):
     bp = TB.pack_batch(*synthetic_batch(n=3, size=128, height=64, bd=bd,
                                         pcm=pcm, seed=bd))
     d = TB.plan_to_device(bp, cuda_device)
-    res = TB.residual_planes(d, bp, cuda_device)
+    res = RS.residual_planes(d, bp)
     srcs = TB.source_tables(d, bp)
     I.reset_launches()
     got = _port_walks(bp, d, res, srcs)

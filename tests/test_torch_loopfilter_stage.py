@@ -6,7 +6,12 @@ Each seeded case of utils.loopfilter_fuzz goes through the JAX stages as
 J._deblock_chroma_pass with the same transposes and the _onehot_take
 chroma QP lookup; stage 4: jax.vmap of J.sao_component over per-sample
 maps) and through the port's plain versions, deblock_plain and
-sao_plain, which the wrappers run on CPU tensors. Tolerance 0. The
+sao_plain, which the wrappers run on CPU tensors. Tolerance 0. Where a
+chroma dimension is not a multiple of 8 (cases 2, 3 and 8), the chroma
+planes' deblocking oracle is the port's host reference instead,
+ref_recon._deblock_chroma_dir: the JAX stage stops one edge short of the
+spec's last there (§8.7.2 filters every multiple of 8 below the plane's
+size), and the test checks that it differs only beside that edge. The
 kernels themselves run only on a card (tests/test_torch_card.py holds
 them against the plain versions on the same cases). Here, without CUDA:
 the wrappers' argument checks, the byte bound, and that `core` goes
@@ -15,6 +20,7 @@ through the wrappers.
 
 import dataclasses
 from functools import partial
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +31,7 @@ import torch
 from heif_tpu.ops import jax_recon as J
 from heif_tpu_torch.ops import batch as B
 from heif_tpu_torch.ops import loopfilter as LF
+from heif_tpu_torch.ops import ref_recon
 from heif_tpu_torch.utils import loopfilter_fuzz as F
 from heif_tpu_torch.utils.synthetic import synthetic_batch
 
@@ -100,6 +107,45 @@ def jax_sao(planes, m, case):
     return out
 
 
+def last_chroma_edges(case):
+    """The chroma edges (vertical, horizontal) that the JAX stage skips:
+    8 * floor(size / 8) where a chroma dimension is not a multiple of 8,
+    else None."""
+    hc, wc = case.height // 2, case.width // 2
+    return tuple(8 * (s // 8) if s % 8 else None for s in (wc, hc))
+
+
+def ref_deblock_chroma(planes, m, case):
+    """Chroma deblocking by ref_recon._deblock_chroma_dir, tile by tile:
+    every vertical edge of a plane, then every horizontal one. The shims
+    carry what it reads of a tile's syntax (qp_y, the 4x4 QpY map) and of
+    the PPS (the chroma QP offsets)."""
+    pps = SimpleNamespace(pps_cb_qp_offset=case.cb_qp_off,
+                          pps_cr_qp_offset=case.cr_qp_off)
+    out = []
+    for c in (1, 2):
+        p = planes[c].copy()
+        for t in range(case.n):
+            st = SimpleNamespace(qp_y=m["qp_map"][t])
+            for vertical, edges in ((True, m["vert_edges"]),
+                                    (False, m["horiz_edges"])):
+                ref_recon._deblock_chroma_dir(
+                    p[t], c, st, pps, edges[t], vertical, case.tc_off,
+                    m["nf_map"][t], case.bit_depth_c)
+        out.append(p)
+    return out
+
+
+def test_fuzz_cases_with_a_last_partial_chroma_edge():
+    """Cases 2 (chroma 36x20), 3 (20x68), 5 (28x24, deblocking off) and
+    8 (12x8) have a chroma edge that the JAX stage skips; the others have
+    none."""
+    hit = [c.seed for c in F.CASES
+           if any(e is not None for e in last_chroma_edges(c))]
+    assert hit == [2, 3, 5, 8]  # case 5 has deblocking off
+    assert F.CASES[4].deblock_disabled
+
+
 @pytest.mark.parametrize("case", F.CASES, ids=lambda c: f"seed{c.seed}")
 def test_plain_loop_filters_equal_the_jax_stages(case):
     planes, maps = F.inputs(case)
@@ -111,6 +157,20 @@ def test_plain_loop_filters_equal_the_jax_stages(case):
         want = planes
     else:
         want = jax_deblock(planes, maps, case)
+        ev, eh = last_chroma_edges(case)
+        if ev is not None or eh is not None:
+            ref = ref_deblock_chroma(planes, maps, case)
+            for c in (1, 2):
+                # the JAX stage differs only beside the edges it skips
+                diff = want[c] != ref[c - 1]
+                near = np.zeros(diff.shape[1:], bool)
+                if ev is not None:
+                    near[:, ev - 1 : ev + 1] = True
+                if eh is not None:
+                    near[eh - 1 : eh + 1, :] = True
+                assert not (diff & ~near).any(), c
+                assert diff.any(), c
+                want[c] = ref[c - 1]
         for c in range(3):
             np.testing.assert_array_equal(deblocked[c].numpy(), want[c],
                                           err_msg=f"deblock plane {c}")

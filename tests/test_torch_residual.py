@@ -17,6 +17,7 @@ from heif_tpu.ops import jax_recon as J
 from heif_tpu.ops.tables import scaling_factor_matrix
 from heif_tpu_torch.ops import batch as TB
 from heif_tpu_torch.ops import recon as R
+from heif_tpu_torch.ops import residual as RS
 from heif_tpu_torch.tables import ReconTables
 from heif_tpu_torch.utils.synthetic import synthetic_batch
 
@@ -96,7 +97,7 @@ def test_scatter_classes_matches_flat_scatter():
     syn = synthetic_batch(n=3, size=64, height=96, bd=8, pcm=True, seed=5)
     bp = TB.pack_batch(*syn)
     d = TB.plan_to_device(bp, torch.device("cpu"))
-    got = TB.residual_planes(d, bp, torch.device("cpu"))
+    got = RS.residual_planes(d, bp)
     n, H, W = bp.n, bp.height, bp.width
     for comp in range(3):
         h, w = (H, W) if comp == 0 else (H // 2, W // 2)

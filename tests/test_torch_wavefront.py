@@ -34,6 +34,7 @@ from heif_tpu_torch import native
 from heif_tpu_torch.ops import batch as B
 from heif_tpu_torch.ops import intra as I
 from heif_tpu_torch.ops import recon as R
+from heif_tpu_torch.ops import residual as RS
 from heif_tpu_torch.tools import image_slices
 from heif_tpu_torch.utils.synthetic import synthetic_batch
 
@@ -72,7 +73,7 @@ def _inputs(bp):
     planes and source tables of a plan, on the CPU."""
     d = B.plan_to_device(bp, CPU)
     d["schedules"] = B.unit_tables(d, bp)
-    return d, B.residual_planes(d, bp, CPU), B.source_tables(d, bp)
+    return d, RS.residual_planes(d, bp), B.source_tables(d, bp)
 
 
 def _walks(bp, d, res, srcs, comp, sch=None):
