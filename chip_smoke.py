@@ -97,23 +97,38 @@ Phases (each prints its lines; any failure raises and exits non-zero):
  15. the stage-1 kernels against their plain PyTorch versions on the
      card, bit for bit: the residual kernel (csrc/residual.cu,
      ops.residual.residual_planes vs residual_plain) and the source-table
-     kernel (csrc/refsrc.cu, ops.refsrc.ref_sources on the luma and
-     chroma worklists vs recon.ref_sources), on a 16-tile flagship chunk,
-     the Main-10 grid's plan, the synthetic 10-bit PCM batch and the tall
-     HEVC-tiles batch, then on every seeded case of
-     heif_tpu_torch/utils/residual_fuzz.py and refsrc_fuzz.py; each
-     kernel's time (the mean of STAGE1_REPS launches, CUDA events) on the
-     flagship chunk and the Main-10 plan beside its plain version's time
-     and its bound (residual: the larger of ops.residual.residual_bytes
-     at the HBM rate and residual_macs at the int32 rate; source tables:
-     ops.refsrc.refsrc_bytes), and for the residual the eager route's
-     float64 bmm pairs on the same classes, timed alone.
+     kernel (csrc/refsrc.cu, one launch for the luma and the chroma
+     worklist through batch.source_tables, vs recon.ref_sources on
+     each), through their wrappers and as bare launches of their C entry
+     points, on a 16-tile flagship chunk, the Main-10 grid's plan, the
+     synthetic 10-bit PCM batch and the tall HEVC-tiles batch, then on
+     every seeded case of heif_tpu_torch/utils/residual_fuzz.py and
+     refsrc_fuzz.py; each kernel's registers and spills (nvcc -Xptxas -v,
+     one extra nvcc a source); on the flagship chunk and the Main-10 plan
+     each kernel timed three ways (means of STAGE1_REPS runs, CUDA
+     events): (a) the bare launch alone, descriptors and outputs built
+     beforehand, cross-checked once by torch.profiler's device time for
+     the kernel; (b) the residual planes' zero fill alone; (c) the
+     wrapper as core calls it, and its host microseconds a call; beside
+     the plain version's time and the bound (residual: the larger of
+     ops.residual.residual_bytes at the HBM rate and residual_macs at the
+     int32 rate; source tables: ops.refsrc.refsrc_bytes), and for the
+     residual the eager route's float64 bmm pairs on the same classes.
 Phases 4, 9, 10 and 12 require, for every core (a batch or chunk), one
-residual launch, two source-table launches and, where the slice header
+residual launch, one source-table launch and, where the slice header
 turns them on, two deblocking launches and one SAO launch.
 The last two lines are a JSON summary of the kernels (the CABAC kernels
-with phase 6's figures) and the card's nvidia-smi line before a final
+with phase 6's figures; "ms" is the kernel alone where phase 15 times
+it so) and the card's nvidia-smi line before a final
 {"ok": true, "device": {...}} line.
+
+    python3 chip_smoke.py --stage1
+
+runs only phase 15 and phase 9's profiled overlapped decode (device
+busy time and operations), after building what they need, and prints
+their numbers as one JSON line last; it runs on a tree from before the
+stage-1 kernels' redesign too, so that two trees can be compared in one
+call.
 Without a CUDA device it exits 2 before doing anything. Any import of
 jax or heif_tpu fails inside this script: the port runs without them.
 """
@@ -404,10 +419,7 @@ def phase3_kernels(sps, pps, slices, sts, dev, card):
     tall tiled pictures (more CTB rows than warps; HEVC tile columns and
     rows, so units of different tiles run side by side). Returns the
     three check_kernels results and the synthetic and tall plans."""
-    import dataclasses
-
     from heif_tpu_torch.ops import batch as B
-    from heif_tpu_torch.utils.synthetic import synthetic_batch
 
     bp = B.pack_batch(sts, sps, pps, slices)
     flag = check_kernels(f"flagship {bp.n}x{bp.height}x{bp.width}", bp, dev)
@@ -416,8 +428,8 @@ def phase3_kernels(sps, pps, slices, sts, dev, card):
               f"against {EARLIER_MS[name]:.3f} ms for the one-block-a-tile "
               f"kernel (PERF.md), bound {flag[name]['bound_ms']:.4f} ms; "
               f"{card}")
-    syn = synthetic_batch(n=4, size=128, bd=10, pcm=True, seed=7)
-    sbp = B.pack_batch(*syn)
+    plans = synthetic_plans()
+    sbp, tbp = plans["synth"], plans["tall"]
     synth = check_kernels("synthetic 4x128x128 10-bit+PCM", sbp, dev)
     check_padded_units("synthetic 4x128x128 10-bit+PCM", sbp, dev)
     # the whole synthetic slice on the card equals the CPU path
@@ -427,13 +439,28 @@ def phase3_kernels(sps, pps, slices, sts, dev, card):
         if not np.array_equal(got[c], want[c]):
             raise SystemExit(f"synthetic batch plane {c}: cuda != cpu")
     print("[kernel] synthetic 10-bit+PCM batch: cuda decode == cpu decode")
-    tbp = B.pack_batch(*synthetic_batch(n=3, size=256, height=1024, bd=10,
-                                        pcm=True, seed=11))
-    tbp = dataclasses.replace(tbp, tile_col_bd=(128,), tile_row_bd=(512,))
     tall = check_kernels(
         f"tall 3x{tbp.height}x{tbp.width} in 2x2 HEVC tiles "
         f"({tbp.height >> tbp.ctb_log2} luma CTB rows)", tbp, dev)
-    return flag, synth, tall, {"synth": sbp, "tall": tbp}
+    return flag, synth, tall, plans
+
+
+def synthetic_plans() -> dict:
+    """Phase 3's synthetic plans: "synth", a 4x128x128 10-bit batch with
+    PCM blocks and strong smoothing; "tall", three 1024x256 10-bit
+    pictures in 2x2 HEVC tiles (more CTB rows than the intra kernels'
+    warps)."""
+    import dataclasses
+
+    from heif_tpu_torch.ops import batch as B
+    from heif_tpu_torch.utils.synthetic import synthetic_batch
+
+    sbp = B.pack_batch(*synthetic_batch(n=4, size=128, bd=10, pcm=True,
+                                        seed=7))
+    tbp = B.pack_batch(*synthetic_batch(n=3, size=256, height=1024, bd=10,
+                                        pcm=True, seed=11))
+    tbp = dataclasses.replace(tbp, tile_col_bd=(128,), tile_row_bd=(512,))
+    return {"synth": sbp, "tall": tbp}
 
 
 def tile_planes(out: dict, i: int, sps) -> list:
@@ -786,8 +813,8 @@ def _launched(what, header) -> dict:
     """The launch counts of the core's kernels since reset_launches();
     fail unless both intra kernels ran, and unless every core (one launch
     of each intra kernel) launched the residual kernel once, the source
-    tables twice (luma and chroma worklists), and deblocking twice and
-    SAO once where the slice header turns them on."""
+    tables once (luma and chroma worklists together), and deblocking
+    twice and SAO once where the slice header turns them on."""
     from heif_tpu_torch.ops import intra as I
     from heif_tpu_torch.ops import loopfilter as LF
     from heif_tpu_torch.ops import refsrc as RF
@@ -805,7 +832,7 @@ def _launched(what, header) -> dict:
     if dict(LF.LAUNCHES) != want:
         raise SystemExit(f"{what} launched the loop filters {LF.LAUNCHES}, "
                          f"expected {want} for {cores} cores")
-    stage1 = {"residual": cores, "ref_sources": 2 * cores}
+    stage1 = {"residual": cores, "ref_sources": cores}
     got = {**RS.LAUNCHES, **RF.LAUNCHES}
     if got != stage1:
         raise SystemExit(f"{what} launched the stage-1 kernels {got}, "
@@ -834,7 +861,6 @@ def check_bulk(data, out4, sts, dev, card) -> dict:
     to the one-batch tile stacks (the path of phase 4's decode, whose
     stitch must equal phase 4's output), each launching both kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from heif_tpu_torch.utils.profiling import DecodeStats
     from heif_tpu_torch import HeicDecoder
@@ -910,22 +936,7 @@ def check_bulk(data, out4, sts, dev, card) -> dict:
               + " ".join(f"{k}={v:.1f}ms" for k, v in stages.items()))
 
     # the device's idle share over one overlapped decode
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        B.decode_reconstruct_overlapped(sps, pps, slices, device=dev)
-        wall = time.perf_counter() - t0
-    on_card = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")
-               and not e.is_user_annotation]
-    busy_us = sum(e.self_device_time_total for e in on_card)
-    out["profiled_wall_ms"] = wall * 1e3
-    out["device_busy_ms"] = busy_us / 1e3
-    out["device_ops"] = sum(e.count for e in on_card)
-    print(f"[bulk] profiled overlapped decode chunk={chunk}: wall "
-          f"{wall * 1e3:.1f} ms, device activity {busy_us / 1e3:.1f} ms in "
-          f"{out['device_ops']} kernels and copies, idle "
-          f"{100 * (1 - busy_us / 1e3 / (wall * 1e3)):.1f}% on {card}")
+    out.update(profile_overlapped(sps, pps, slices, dev, card))
 
     # intra kernel time: chunks of the default size in series vs one 48
     split = sum(intra_kernel_ms(B.pack_batch(sts[lo : lo + chunk], sps, pps,
@@ -998,6 +1009,33 @@ def check_bulk(data, out4, sts, dev, card) -> dict:
     print(f"[bulk] burst of {BURST}: "
           f"{' '.join(f'{w * 1e3:.1f}' for w in burst_walls)} ms; best "
           f"{BURST * mp / min(burst_walls):.2f} MP/s on {card}")
+    return out
+
+
+def profile_overlapped(sps, pps, slices, dev, card) -> dict:
+    """One overlapped decode at the default chunk under torch.profiler:
+    its wall, the device's busy time (kernels and copies) and their
+    count, as phase 9 reports them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from heif_tpu_torch.ops import batch as B
+
+    chunk = B.schedule_hints(None, sps, pps, len(slices))["chunk"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        B.decode_reconstruct_overlapped(sps, pps, slices, device=dev)
+        wall = time.perf_counter() - t0
+    on_card = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and not e.is_user_annotation]
+    busy_us = sum(e.self_device_time_total for e in on_card)
+    out = {"profiled_wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+           "device_ops": sum(e.count for e in on_card)}
+    print(f"[bulk] profiled overlapped decode chunk={chunk}: wall "
+          f"{wall * 1e3:.1f} ms, device activity {busy_us / 1e3:.1f} ms in "
+          f"{out['device_ops']} kernels and copies, idle "
+          f"{100 * (1 - busy_us / 1e3 / (wall * 1e3)):.1f}% on {card}")
     return out
 
 
@@ -1477,19 +1515,164 @@ def _bmm_pairs(d, bp):
     return run
 
 
+# the stage-1 kernels by name as the profiler and ptxas report them
+STAGE1_KERNELS = {"residual": "residual_kernel",
+                  "ref_sources": "ref_sources_kernel"}
+
+
+def ptxas_report(names) -> dict:
+    """Per kernel of the named heif_tpu_torch/csrc sources, what ptxas
+    reports with -Xptxas -v: {mangled name: {"registers", "spill_stores",
+    "spill_loads", "smem" (bytes)}}. One extra nvcc a source, all started
+    together, with the library's flags; the objects are thrown away."""
+    import re
+    import tempfile
+
+    from heif_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.find_nvcc()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        procs = [subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             os.path.join(tmpdir, name + ".o"), str(_build.CSRC / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for name in names]
+        for name, proc in zip(names, procs):
+            stdout, err = proc.communicate()
+            if proc.returncode != 0:
+                raise SystemExit(f"nvcc -Xptxas -v {name} failed:\n{err}")
+            kernel = None
+            for line in (stdout + err).splitlines():
+                m = re.search(r"Compiling entry function '([^']+)'", line)
+                if m:
+                    kernel = out.setdefault(m.group(1), {})
+                elif kernel is not None:
+                    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", line)
+                    if m:
+                        kernel["spill_stores"] = int(m.group(1))
+                        kernel["spill_loads"] = int(m.group(2))
+                    m = re.search(r"Used (\d+) registers", line)
+                    if m:
+                        kernel["registers"] = int(m.group(1))
+                        sm = re.search(r"(\d+) bytes smem", line)
+                        kernel["smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def stage1_bare(d, bp, geometry) -> dict:
+    """Bare launches of the stage-1 kernels' C entry points, with their
+    descriptors and outputs built once: per kernel (run, outputs), run()
+    one launch on the current stream that returns the C entry's code.
+    Nothing is counted. The residual's planes come zero-filled (its
+    wrapper fills them before every launch); run() overwrites the samples
+    of every TU with the same values. Takes the entry points of this
+    tree or of a tree from before the kernels' redesign (transform tables
+    passed in, a source-table launch a worklist: heif_ref_sources)."""
+    import ctypes
+
+    import torch
+
+    from heif_tpu_torch.ops import _build
+    from heif_tpu_torch.ops import recon as R
+    from heif_tpu_torch.ops import refsrc as RF
+    from heif_tpu_torch.ops import residual as RS
+    from heif_tpu_torch.tables import tables_on
+
+    lib = _build.load()
+    dev = d["steps"][0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    if d["classes"]:
+        dims = RS.plane_dims(bp)
+        sizes = [bp.n * (h + R.PAD) * (w + R.PAD) for h, w in dims]
+        flat = torch.zeros(sum(sizes), dtype=torch.int32, device=dev)
+        planes = [p.view(bp.n, h + R.PAD, w + R.PAD)
+                  for p, (h, w) in zip(flat.split(sizes), dims)]
+        descs = (RS.ResClass * len(d["classes"]))()
+        for i, (comp, size, coeffs, qp, dst, skip, byp, org) in enumerate(
+                d["classes"]):
+            descs[i] = RS.ResClass(
+                coeffs.data_ptr(), qp.data_ptr(), dst.data_ptr(),
+                skip.data_ptr(), byp.data_ptr(), org.data_ptr(),
+                d["scaling"][(size, comp)].data_ptr(), planes[comp].data_ptr(),
+                coeffs.shape[0], size, RS.bit_depth(bp, comp),
+                dims[comp][1] + R.PAD)
+        res_args = [ctypes.addressof(descs), len(d["classes"])]
+        if len(lib.heif_residual.argtypes) > 3:  # tables passed in
+            t = tables_on(dev)
+            res_args += [t.level_scale.data_ptr(),
+                         *[t.dct(s).data_ptr() for s in RS.SIZES],
+                         t.dst4.data_ptr()]
+        res_args.append(stream)
+        out["residual"] = (lambda: (descs, lib.heif_residual(*res_args))[1],
+                           (planes, flat))
+    if geometry is not None:
+        W, H, ctb_log2, cols, rows = geometry
+        steps = d["steps"][:2]
+        tabs = [torch.empty((*st.shape[:2], 2, R.REF_LEN), dtype=torch.uint8,
+                            device=dev) for st in steps]
+        c_cols = (ctypes.c_int * RF.MAX_TILE_COLS)(*cols)
+        c_rows = (ctypes.c_int * RF.MAX_TILE_ROWS)(*rows)
+        tail = [W, H, ctb_log2, c_cols, len(cols), c_rows, len(rows), stream]
+        if hasattr(lib, "heif_ref_sources2"):
+            src_args = [v for st, tab in zip(steps, tabs)
+                        for v in (st.data_ptr(), tab.data_ptr(), *st.shape)]
+
+            def run():
+                return lib.heif_ref_sources2(*src_args, *tail)
+        else:  # a launch a worklist
+            calls = [[st.data_ptr(), tab.data_ptr(), *st.shape, c, *tail[:3],
+                      *tail[3:]] for c, (st, tab) in enumerate(zip(steps, tabs))]
+
+            def run():
+                return max(abs(lib.heif_ref_sources(*a)) for a in calls)
+        out["ref_sources"] = (run, (tabs,))
+    return out
+
+
+def profiler_ms(fn, reps: int, kernel: str):
+    """Mean device time of the kernel whose name holds `kernel` over reps
+    runs of fn(), from torch.profiler's key_averages(); None where the
+    profiler shows no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if kernel in e.key and str(e.device_type).endswith("CUDA")]
+    us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in hits)
+    count = sum(e.count for e in hits)
+    return us / 1e3 / count if us > 0 and count else None
+
+
 def check_stage1_kernels(label, d, bp, geometry, timed: bool) -> dict:
     """The residual kernel (ops.residual.residual_planes) and the source
-    tables kernel (ops.refsrc.ref_sources, both worklists: luma and
-    chroma, as core calls it) against their plain versions on the same
-    device inputs, bit for bit. geometry: (W, H, ctb_log2, tile_col_bd,
-    tile_row_bd) of the worklists, or None where d has no worklist (a
-    residual fuzz case); a d without classes (a source fuzz case) checks
-    only the source tables. Per kernel the largest error and the plain
-    version's comparison run (CUDA events); timed: the kernel's mean over
-    STAGE1_REPS launches (both worklists for the source tables), its
-    bound (residual: the larger of its bytes at the HBM rate and its
+    tables kernel (batch.source_tables: both worklists, luma and chroma,
+    as core calls it) against their plain versions on the same device
+    inputs, bit for bit; the bare launches of stage1_bare too. geometry:
+    (W, H, ctb_log2, tile_col_bd, tile_row_bd) of the worklists, or None
+    where d has no worklist (a residual fuzz case); a d without classes
+    (a source fuzz case) checks only the source tables. Per kernel the
+    largest error and the plain version's comparison run (CUDA events).
+    timed: each kernel three ways, the mean over STAGE1_REPS runs by CUDA
+    events: (a) the bare launch alone ("ms"), cross-checked once by
+    torch.profiler ("profiler_ms"); (b) for the residual, its planes' zero
+    fill alone ("fill_ms"); (c) the wrapper as core calls it
+    ("wrapper_ms"), and the host microseconds of one wrapper call
+    ("wrapper_host_us", the mean of STAGE1_REPS enqueues); then the bound
+    (residual: the larger of its bytes at the HBM rate and its
     multiply-adds at the int32 rate; source tables: bytes) and, for the
     residual, the eager route's float64 bmm pairs timed alone."""
+    import torch
+
+    from heif_tpu_torch.ops import batch as B
     from heif_tpu_torch.ops import refsrc as RF
     from heif_tpu_torch.ops import residual as RS
 
@@ -1504,38 +1687,71 @@ def check_stage1_kernels(label, d, bp, geometry, timed: bool) -> dict:
                    tile_row_bd=rows) for c in range(2)]
         steps = d["steps"][:2]
         calls["ref_sources"] = (
-            lambda: [RF.ref_sources(st, **k) for st, k in zip(steps, kw)],
+            lambda: B.source_tables(d, bp),
             lambda: [RF.ref_sources_plain(st, **k)
                      for st, k in zip(steps, kw)])
+    bare = stage1_bare(d, bp, geometry)
     for name, (kern, plain) in calls.items():
         got = kern()
         want, plain_ms = timed_once(plain)
         err = max_err(f"{label} {name}", got, want)
         res = {"max_abs_err": err, "plain_ms": plain_ms}
         line = f"[stage1] {label} {name}: max_abs_err={err}"
+        if name in bare:
+            run, outs = bare[name]
+            rc = run()
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise SystemExit(f"{label}: the bare {name} launch returned "
+                                 f"{rc}")
+            err = max_err(f"{label} bare {name}", outs[0], want)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            line += f" (bare launch {err})"
         if timed:
-            res["ms"] = cuda_ms(kern, STAGE1_REPS)
+            run, outs = bare[name]
+            run()
+            res["ms"] = cuda_ms(run, STAGE1_REPS)
+            res["profiler_ms"] = profiler_ms(run, STAGE1_REPS,
+                                             STAGE1_KERNELS[name])
+            res["wrapper_ms"] = cuda_ms(kern, STAGE1_REPS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(STAGE1_REPS):
+                kern()
+            res["wrapper_host_us"] = ((time.perf_counter() - t0) * 1e6
+                                      / STAGE1_REPS)
+            torch.cuda.synchronize()
+            prof = ("no device time in the profiler"
+                    if res["profiler_ms"] is None
+                    else f"profiler {res['profiler_ms']:.4f} ms")
             if name == "residual":
+                flat = outs[1]
+                res["fill_ms"] = cuda_ms(flat.zero_, STAGE1_REPS)
                 n_bytes, n_ops = RS.residual_bytes(d, bp), RS.residual_macs(d, bp)
                 by_bytes = bound_ms(n_bytes)
                 by_ops = n_ops / INT32_MACS_PER_MS
                 res["bound_ms"] = max(by_bytes, by_ops)
                 res["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
                 res["library_ms"] = cuda_ms(_bmm_pairs(d, bp), STAGE1_REPS)
-                extra = (f"; {n_bytes} B ({by_bytes:.4f} ms), {n_ops} "
+                extra = (f"; fill {res['fill_ms']:.4f} ms ({flat.numel() * 4} "
+                         f"B); {n_bytes} B ({by_bytes:.4f} ms), {n_ops} "
                          f"multiply-adds ({by_ops:.4f} ms); float64 bmm pairs "
                          f"{res['library_ms']:.4f} ms")
             else:
                 n_bytes = sum(RF.refsrc_bytes(st) for st in steps)
+                res["fill_ms"] = None
                 res["bound_ms"] = bound_ms(n_bytes)
                 res["bound_by"] = "bytes"
                 res["library_ms"] = None
                 extra = f"; {n_bytes} B"
-            line += (f"; kernel {res['ms']:.4f} ms (mean of {STAGE1_REPS}), "
-                     f"plain {plain_ms:.2f} ms, bound {res['bound_ms']:.4f} ms "
+            line += (f"; kernel alone {res['ms']:.4f} ms (mean of "
+                     f"{STAGE1_REPS} bare launches; {prof}), wrapper "
+                     f"{res['wrapper_ms']:.4f} ms and "
+                     f"{res['wrapper_host_us']:.1f} us of host a call, plain "
+                     f"{plain_ms:.2f} ms, bound {res['bound_ms']:.4f} ms "
                      f"({res['bound_by']}){extra}")
         print(line)
-        if err:
+        if res["max_abs_err"]:
             raise SystemExit(f"{label}: the {name} kernel disagrees with its "
                              "plain version")
         out[name] = res
@@ -1547,13 +1763,23 @@ def check_stage1(sps, pps, slices, sts, plans, main10_plan, dev, card) -> dict:
     flagship chunk (timed: the main path's shape), the Main-10 grid's plan
     (timed), the synthetic 10-bit PCM batch and the tall HEVC-tiles batch
     (plans: phase 3's), then on every case of utils.residual_fuzz and
-    utils.refsrc_fuzz. Returns per kernel the flagship chunk's numbers
-    with the largest error over all inputs."""
+    utils.refsrc_fuzz; each kernel's registers and spills (ptxas) once.
+    Returns per kernel the flagship chunk's numbers with the largest error
+    over all inputs, and the Main-10 plan's under "main10"."""
     import torch
 
     from heif_tpu_torch.ops import batch as B
     from heif_tpu_torch.utils import refsrc_fuzz as RFF
     from heif_tpu_torch.utils import residual_fuzz as RSF
+
+    regs = ptxas_report(["residual.cu", "refsrc.cu"])
+    for mangled, r in regs.items():
+        for name, kernel in STAGE1_KERNELS.items():
+            if kernel in mangled:
+                print(f"[stage1] {name} {mangled}: {r.get('registers')} "
+                      f"registers, {r.get('spill_stores')} B spill stores, "
+                      f"{r.get('spill_loads')} B spill loads, "
+                      f"{r.get('smem')} B static shared memory (ptxas -v)")
 
     def geometry(p):
         return p.width, p.height, p.ctb_log2, p.tile_col_bd, p.tile_row_bd
@@ -1569,17 +1795,20 @@ def check_stage1(sps, pps, slices, sts, plans, main10_plan, dev, card) -> dict:
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                            r["max_abs_err"])
 
-    for label, p, timed in (
-        (f"main-10 grid {main10_plan.n}x{main10_plan.height}x"
-         f"{main10_plan.width} CTB {1 << main10_plan.ctb_log2}", main10_plan,
-         True),
+    main10 = check_stage1_kernels(
+        f"main-10 grid {main10_plan.n}x{main10_plan.height}x"
+        f"{main10_plan.width} CTB {1 << main10_plan.ctb_log2}",
+        B.plan_to_device(main10_plan, dev), main10_plan,
+        geometry(main10_plan), True)
+    fold(main10)
+    for label, p in (
         (f"synthetic {plans['synth'].n}x{plans['synth'].height}x"
-         f"{plans['synth'].width} 10-bit+PCM", plans["synth"], False),
+         f"{plans['synth'].width} 10-bit+PCM", plans["synth"]),
         (f"tall {plans['tall'].n}x{plans['tall'].height}x"
-         f"{plans['tall'].width} in 2x2 HEVC tiles", plans["tall"], False),
+         f"{plans['tall'].width} in 2x2 HEVC tiles", plans["tall"]),
     ):
         fold(check_stage1_kernels(label, B.plan_to_device(p, dev), p,
-                                  geometry(p), timed))
+                                  geometry(p), False))
     for case in RSF.CASES:
         fold(check_stage1_kernels(
             f"residual fuzz seed {case.seed} {case.n}x{case.height}x"
@@ -1593,13 +1822,51 @@ def check_stage1(sps, pps, slices, sts, plans, main10_plan, dev, card) -> dict:
             (case.width, case.height, case.ctb_log2, case.tile_col_bd,
              case.tile_row_bd), False))
     for name, r in out.items():
-        print(f"[stage1] {name}: flagship chunk {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}); every input bit-exact on {card}")
+        m = main10[name]
+        print(f"[stage1] {name}: flagship chunk alone {r['ms']:.4f} ms, "
+              f"wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.2f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); Main-10 "
+              f"plan alone {m['ms']:.4f} ms, wrapper {m['wrapper_ms']:.4f} ms, "
+              f"bound {m['bound_ms']:.4f} ms; every input bit-exact on {card}")
+    out["main10"] = main10
     return out
 
 
-def main() -> int:
+def stage1_only(card, dev) -> int:
+    """`--stage1`: phase 15 and phase 9's profiled overlapped decode
+    alone, for comparing two trees in one call (this script runs on a
+    tree from before the stage-1 kernels' redesign too). Builds what they
+    need: the native entropy library and the kernels, the flagship and
+    Main-10 plans, the synthetic and tall plans of phase 3. Prints one
+    JSON line of the numbers last."""
+    from heif_tpu_torch import native
+    from heif_tpu_torch.ops import _build
+
+    native.load()
+    _build.load()
+    data = open(ASSET, "rb").read()
+    sps, pps, _, slices, sts = load_flagship(data)
+    m_sps, m_pps, _, m_slices, m_sts = load_flagship(open(MAIN10_GRID,
+                                                          "rb").read())
+    from heif_tpu_torch.ops import batch as B
+
+    main10_plan = B.pack_batch(m_sts, m_sps, m_pps, m_slices)
+    plans = synthetic_plans()
+    stage1 = check_stage1(sps, pps, slices, sts, plans, main10_plan, dev,
+                          card)
+    prof = profile_overlapped(sps, pps, slices, dev, card)
+    keys = ("ms", "profiler_ms", "fill_ms", "wrapper_ms", "wrapper_host_us",
+            "plain_ms", "bound_ms", "max_abs_err")
+    print(json.dumps({
+        "stage1": {name: {k: stage1[name].get(k) for k in keys}
+                   for name in STAGE1_KERNELS},
+        "stage1_main10": {name: {k: stage1["main10"][name].get(k)
+                                 for k in keys} for name in STAGE1_KERNELS},
+        "phase9": prof, "card": card}))
+    return 0
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1621,6 +1888,12 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    if argv == ["--stage1"]:
+        print(f"[card] {card}")
+        return stage1_only(card, dev)
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     # phase 1
     print(f"[card] {card}")
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1796,6 +2069,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "profiler_ms": r["profiler_ms"], "fill_ms": r["fill_ms"],
+            "wrapper_ms": r["wrapper_ms"],
+            "wrapper_host_us": r["wrapper_host_us"],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1805,4 +2081,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

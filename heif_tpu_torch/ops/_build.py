@@ -63,12 +63,12 @@ _SIGNATURES = {
     # y, cb, cr, y_in, cb_in, cr_in, strides as above, sao, nf, n, H, W,
     # R, C, ctb_log2, bd_y, bd_c, stream
     "heif_sao": [_vp] * 6 + [_ll] * 6 + [_vp] * 2 + [_i] * 8 + [_vp],
-    # classes (ResClass array), n_classes, level_scale, dct4, dct8, dct16,
-    # dct32, dst4, stream
-    "heif_residual": [_vp, _i] + [_vp] * 7,
-    # steps, out, n, S, F, comp, W, H, ctb_log2, col_bd, n_col, row_bd,
-    # n_row, stream
-    "heif_ref_sources": [_vp] * 2 + [_i] * 7 + [_ip, _i, _ip, _i, _vp],
+    # classes (ResClass array), n_classes, stream
+    "heif_residual": [_vp, _i, _vp],
+    # steps_y, out_y, n_y, S_y, F_y, steps_c, out_c, n_c, S_c, F_c, W, H,
+    # ctb_log2, col_bd, n_col, row_bd, n_row, stream
+    "heif_ref_sources2": ([_vp] * 2 + [_i] * 3) * 2 + [_i] * 3
+                         + [_ip, _i, _ip, _i, _vp],
 }
 
 

@@ -560,17 +560,14 @@ def unit_tables(d: dict, bp: BatchPlan) -> list:
 
 def source_tables(d: dict, bp: BatchPlan) -> list:
     """[luma, chroma] reference-source tables [N, S, 2, 65] uint8
-    (ops.refsrc: one kernel launch each on CUDA). Cb and Cr share TU
-    geometry and intra mode (one intra_chroma_pred_mode per PU), so one
-    chroma worklist and one table serve both planes."""
-    return [
-        RF.ref_sources(
-            d["steps"][c], comp=c, W=bp.width, H=bp.height,
-            ctb_log2=bp.ctb_log2, tile_col_bd=bp.tile_col_bd,
-            tile_row_bd=bp.tile_row_bd,
-        )
-        for c in range(2)
-    ]
+    (ops.refsrc.ref_sources2: one kernel launch for both on CUDA). Cb and
+    Cr share TU geometry and intra mode (one intra_chroma_pred_mode per
+    PU), so one chroma worklist and one table serve both planes."""
+    return RF.ref_sources2(
+        d["steps"][0], d["steps"][1], W=bp.width, H=bp.height,
+        ctb_log2=bp.ctb_log2, tile_col_bd=bp.tile_col_bd,
+        tile_row_bd=bp.tile_row_bd,
+    )
 
 
 def core(d: dict, bp: BatchPlan, device: torch.device, stats=None) -> list:
@@ -587,7 +584,7 @@ def core(d: dict, bp: BatchPlan, device: torch.device, stats=None) -> list:
     with _stage(stats, "residual", device):
         res = RS.residual_planes(d, bp)
 
-    # ---- stage 2: source tables (two launches on CUDA), intra walks ----
+    # ---- stage 2: source tables (one launch on CUDA), intra walks ----
     with _stage(stats, "intra", device):
         steps, counts, pcm, sch = (d["steps"], d["counts"], d["pcm"],
                                    d["schedules"])

@@ -7,7 +7,9 @@ row-scatter of whole blocks). No Pallas kernel stands behind it there:
 XLA fuses its jnp code. On CUDA tensors the wrapper launches the kernel
 of csrc/residual.cu (built on first use by ops._build) once for all
 classes, on the current stream, into planes zero-filled by one fill, and
-raises if the launch fails. On CPU tensors it runs `residual_plain`:
+raises if the launch fails. The kernel carries HEVC's transform and
+level-scale tables itself (tests/test_torch_residual_stage.py holds them
+against tables.ReconTables). On CPU tensors it runs `residual_plain`:
 recon.residual_class composed with recon.scatter_classes, which is also
 the kernel's oracle on the card. There is no fallback from one to the
 other. LAUNCHES counts kernel launches only.
@@ -112,10 +114,8 @@ def residual_planes(d: dict, bp) -> list:
             byp.data_ptr(), org.data_ptr(),
             d["scaling"][(size, comp)].data_ptr(), planes[comp].data_ptr(),
             coeffs.shape[0], size, bit_depth(bp, comp), dims[comp][1] + R.PAD)
-    t = tables_on(dev)
     rc = _build.load().heif_residual(
-        ctypes.addressof(descs), len(classes), t.level_scale.data_ptr(),
-        *[t.dct(s).data_ptr() for s in SIZES], t.dst4.data_ptr(),
+        ctypes.addressof(descs), len(classes),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"heif_residual launch failed: "

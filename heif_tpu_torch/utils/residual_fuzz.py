@@ -20,7 +20,10 @@ d["scaling"]):
 - qp 0 to 63, heaped at 0, 51 and 63, and levels spread over +-3000 with
   most of them 0, or heaped at the int16 ends: at qp 51 and above a 4x4
   block's dequant product shifted left wraps past 2^31, as int32 does in
-  the plain version and in heif_tpu.
+  the plain version and in heif_tpu;
+- levels only in a top-left corner of each TU (its first 1, S/4, S/2 or
+  S rows and columns, drawn apart), as a coarse quantiser leaves them:
+  the trailing zero rows and columns that the kernel skips.
 
 Numpy only; the same case gives the same arrays everywhere
 (tests/test_torch_residual_stage.py holds the plain version against
@@ -56,6 +59,7 @@ class Case:
     pad_rows: int = 0  # cap-padding rows appended to every class
     saturate: bool = False  # levels heaped at the int16 ends
     empty: tuple = ()  # classes of padding rows only
+    corner: bool = False  # levels only in a top-left corner of each TU
 
 
 CASES = (
@@ -65,6 +69,8 @@ CASES = (
     Case(4, 3, 72, 40, 8, 10, "random", 2, True),  # not a multiple of 32
     Case(5, 2, 64, 128, 12, 8, "default", 0, True),
     Case(6, 2, 64, 64, 8, 8, "random", 1, empty=((0, 32), (1, 4))),
+    Case(7, 2, 64, 96, 10, 10, "default", 2, corner=True),
+    Case(8, 2, 128, 128, 8, 8, "flat", 1, True, corner=True),
 )
 
 
@@ -109,7 +115,8 @@ def _layout(rng, case: Case) -> dict:
     return out
 
 
-def _levels(rng, k: int, s: int, saturate: bool) -> np.ndarray:
+def _levels(rng, k: int, s: int, saturate: bool,
+            corner: bool) -> np.ndarray:
     lv = rng.integers(-3000, 3001, (k, s, s))
     lv[rng.random((k, s, s)) < 0.6] = 0
     if saturate:
@@ -117,6 +124,12 @@ def _levels(rng, k: int, s: int, saturate: bool) -> np.ndarray:
         full = rng.integers(-32768, 32768, (k, s, s))
         pick = rng.random((k, s, s))
         lv = np.where(pick < 0.5, ends, np.where(pick < 0.7, full, lv))
+    if corner:
+        ends = np.array([1, max(s // 4, 1), s // 2, s])
+        rows = rng.choice(ends, k)[:, None, None]
+        cols = rng.choice(ends, k)[:, None, None]
+        i = np.arange(s)
+        lv = np.where((i[:, None] < rows) & (i[None] < cols), lv, 0)
     return lv.astype(np.int16)
 
 
@@ -138,7 +151,7 @@ def inputs(case: Case) -> tuple:
         org = np.full(k + kp, -1, np.int32)
         for i, (t, y, x) in enumerate(tus):
             org[i] = t * stride + y * (w + PAD) + x
-        coeffs = _levels(rng, k + kp, size, case.saturate)
+        coeffs = _levels(rng, k + kp, size, case.saturate, case.corner)
         qp = rng.integers(0, 64, k + kp)
         qp = np.where(rng.random(k + kp) < 0.3,
                       rng.choice(np.array([0, 51, 63]), k + kp), qp)

@@ -46,9 +46,11 @@ On a card (`cuda`-marked; each skips without one):
   header turns them on;
 - the residual and source-table kernels (ops.residual, ops.refsrc) vs
   their plain versions on every seeded case of utils.residual_fuzz and
-  utils.refsrc_fuzz and on a tall 2x2-tiled PCM plan; core on CUDA
-  launches the residual kernel once and the source tables twice and runs
-  no plain stage-1 op; every fixture kind's decode launches them so;
+  utils.refsrc_fuzz and on a tall 2x2-tiled PCM plan, the two-worklist
+  source-table launch (ops.refsrc.ref_sources2) on both worklists of a
+  plan with HEVC tiles; core on CUDA launches the residual kernel once
+  and the source tables once and runs no plain stage-1 op; every fixture
+  kind's decode launches them so;
 - the edge kinds (`edge72`, `edge1080_main10`, `edge40x200_wpp`: committed
   x265 streams with a side of 8 (mod 16), so a partial last chroma
   deblocking edge) through decode and decode_hevc, equal to backend="ref";
@@ -447,8 +449,8 @@ def test_decode_fixture_launches_loop_filter_kernels(cuda, kind):
 def test_decode_fixture_launches_stage1_kernels(cuda, kind):
     """One core a decode: one residual launch where any TU has
     coefficients (every x265 kind; not the synthetic all-PCM picture and
-    tiled stream), two source-table launches (luma and chroma
-    worklists)."""
+    tiled stream), one source-table launch (luma and chroma worklists
+    together)."""
     sps, pps, slices, _ = image_slices(_container(kind))
     bp = B.pack_batch(native.decode_tiles_parallel(sps, pps, slices), sps,
                       pps, slices)
@@ -457,7 +459,7 @@ def test_decode_fixture_launches_stage1_kernels(cuda, kind):
     HeicDecoder.decode(_container(kind), device=cuda)
     assert RS.LAUNCHES == {"residual": int(bool(bp.tc_coeffs))}
     assert bool(bp.tc_coeffs) == (kind not in ("tiles", "pcm_window"))
-    assert RF.LAUNCHES == {"ref_sources": 2}
+    assert RF.LAUNCHES == {"ref_sources": 1}
 
 
 @pytest.mark.cuda
@@ -492,10 +494,35 @@ def test_refsrc_kernel_matches_plain_on_fuzz(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed", [17, 23])
+def test_two_worklist_refsrc_kernel_matches_plain(cuda, seed):
+    """ops.refsrc.ref_sources2: one launch fills the luma and the chroma
+    table of a plan in 3x3 HEVC tiles, each equal to ref_sources_plain on
+    its worklist and to the one-worklist launch."""
+    import dataclasses
+
+    bp = B.pack_batch(*synthetic_batch(n=3, size=192, height=128, bd=8,
+                                       pcm=False, seed=seed))
+    bp = dataclasses.replace(bp, tile_col_bd=(64, 128), tile_row_bd=(32, 96))
+    d = B.plan_to_device(bp, cuda)
+    geo = dict(W=bp.width, H=bp.height, ctb_log2=bp.ctb_log2,
+               tile_col_bd=bp.tile_col_bd, tile_row_bd=bp.tile_row_bd)
+    RF.reset_launches()
+    got = RF.ref_sources2(d["steps"][0], d["steps"][1], **geo)
+    assert RF.LAUNCHES == {"ref_sources": 1}
+    for c in range(2):
+        want = RF.ref_sources_plain(d["steps"][c], comp=c, **geo)
+        assert got[c].dtype == torch.uint8 and torch.equal(got[c], want), c
+        assert torch.equal(RF.ref_sources(d["steps"][c], comp=c, **geo),
+                           want), c
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_core_runs_the_stage1_kernels_and_no_plain_op(cuda, monkeypatch):
     """Tall pictures in 2x2 HEVC tiles with PCM blocks: both stage-1
     kernels equal their plain versions on the plan; then core on CUDA
-    launches the residual kernel once and the source tables twice, runs
+    launches the residual kernel once and the source tables once, runs
     none of recon.residual_class, scatter_classes and ref_sources, and
     gives the CPU core's planes."""
     import dataclasses
@@ -523,7 +550,7 @@ def test_core_runs_the_stage1_kernels_and_no_plain_op(cuda, monkeypatch):
     RF.reset_launches()
     got = B.core(d, bp, cuda)
     assert RS.LAUNCHES == {"residual": 1}
-    assert RF.LAUNCHES == {"ref_sources": 2}
+    assert RF.LAUNCHES == {"ref_sources": 1}
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
 

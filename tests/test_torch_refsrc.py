@@ -8,11 +8,16 @@ and corners, padding steps, CTB 16-64, luma and chroma, up to a tile a
 CTB), on synthetic plans with and without HEVC tile boundaries, and on a
 2-tile flagship plan. Tolerance 0. The CUDA kernel runs only on a card
 (tests/test_torch_card.py holds it against the plain version); here a
-numpy transcription of its own logic (a warp a TU: five 32-lane rounds
-of availability gathered into a 129-bit mask, the substitution as a
-lookup of the last available position at or before each one, else the
-walk's first) is held against the plain version on the same worklists.
-Also without CUDA: the wrapper's argument checks and the byte count.
+numpy transcription of its own logic (one launch for the luma and the
+chroma worklist, blocks of 128 TUs; a thread a TU tests availability
+once per 4x4 luma block of its walk into a bit mask, then writes its
+table unit by unit into the block's staged run of 130-byte tables, which
+the block copies out 16 bytes a thread) is held against the plain
+version on the same
+worklists, and its block-level availability against the per-position
+test on every worklist. Also without CUDA: the wrappers' argument checks
+(pictures and tile boundaries that are not multiples of 8 among them)
+and the byte count.
 """
 
 import dataclasses
@@ -41,83 +46,169 @@ def jax_sources(steps, comp, W, H, ctb_log2, cols=(), rows=()):
 
 # a numpy transcription of csrc/refsrc.cu
 
+THREADS = 128  # TUs a block
+NONE = 255
+N_REF = 2 * REF_LEN
+
+
+def _spread4(v):
+    v = v & 15
+    v = (v | (v << 2)) & 0x33
+    return (v | (v << 1)) & 0x55
+
 
 def _z_addr(g4y, g4x, cl, ctbs_x):
-    ctb = (g4y >> cl) * ctbs_x + (g4x >> cl)
+    """z_addr: the CTB's raster index, then the bit-spread interleave."""
     m = (1 << cl) - 1
-    ix, iy = g4x & m, g4y & m
-    z = np.zeros_like(g4x)
-    for b in range(cl):
-        z |= ((ix >> b) & 1) << (2 * b) | ((iy >> b) & 1) << (2 * b + 1)
-    return (ctb << (2 * cl)) + z
+    ctb = (g4y >> cl) * ctbs_x + (g4x >> cl)
+    return (ctb << (2 * cl)) + (_spread4(g4x & m) | (_spread4(g4y & m) << 1))
 
 
-def _tile_of(v, bd):
-    return sum((v >= b).astype(np.int64) for b in bd) if bd else 0 * v
+def _span(v, bd):
+    """tile_span: [lo, hi) between the interior boundaries around v."""
+    lo = np.zeros_like(v)
+    hi = np.full_like(v, 2 ** 31 - 1)
+    for b in bd:
+        lo = np.where(b <= v, np.maximum(lo, b), lo)
+        hi = np.where(b > v, np.minimum(hi, b), hi)
+    return lo, hi
+
+
+def _geometry(comp, W, H, ctb_log2):
+    sub = 1 if comp == 0 else 2
+    cl = ctb_log2 - 2
+    return sub, 2 if comp == 0 else 1, cl, ((W >> 2) + (1 << cl) - 1) >> cl
+
+
+def unit_availability(steps, comp, W, H, ctb_log2, cols=(), rows=()):
+    """The first phase's availability, a thread a TU: per TU (flattened)
+    its s2 = 2N (0: padding or a size past 32) and per unit U of its walk
+    (left units from the bottom, the corner, top units) the unit's first
+    and last walk positions and whether it is available (False past
+    2 * (2N / u))."""
+    st = steps.reshape(-1, steps.shape[-1]).astype(np.int64)
+    x, y, size = st[:, 0:1], st[:, 1:2], st[:, 2:3]
+    sub, ushift, cl, ctbs_x = _geometry(comp, W, H, ctb_log2)
+    u = 1 << ushift
+    s2 = np.where((size > 0) & (size <= 32), 2 * size, 0)
+    nl = s2 >> ushift
+    U = np.arange(65)[None]
+    left, corner = U < nl, U == nl
+    j = (U - nl - 1) * u
+    w0 = np.where(left, U * u, np.where(corner, s2, s2 + 1 + j))
+    w1 = np.where(left, U * u + u - 1, np.where(corner, s2, s2 + j + u))
+    cx = np.where(left | corner, x - 1, x + j)
+    cy = np.where(left, y + s2 - 1 - U * u, y - 1)
+    lx, ly = cx * sub, cy * sub
+    tx0, tx1 = _span(x * sub, cols)
+    ty0, ty1 = _span(y * sub, rows)
+    z_cur = _z_addr((y * sub) >> 2, (x * sub) >> 2, cl, ctbs_x)
+    avail = ((U <= 2 * nl) & (s2 > 0) & (lx >= 0) & (ly >= 0) & (lx < W)
+             & (ly < H) & (lx >= tx0) & (lx < tx1) & (ly >= ty0) & (ly < ty1)
+             & (_z_addr(np.clip(ly, 0, H - 1) >> 2, np.clip(lx, 0, W - 1) >> 2,
+                        cl, ctbs_x) < z_cur))
+    return s2[:, 0], w0, w1, avail
+
+
+def tu_tables(steps, comp, W, H, ctb_log2, cols=(), rows=()):
+    """tu_table of every TU (flattened), vectorised over TUs: the units in
+    walk order, each writing its u bytes (an available unit: its own
+    local index; else that of the last position of the last available
+    unit before it, or of the first position of the first available unit,
+    or 255), the corner both sides' index 0, then 255 past 2N; padding
+    steps 255 throughout. Returns [T, 130] uint8."""
+    s2, w0, w1, avail = unit_availability(steps, comp, W, H, ctb_log2, cols,
+                                          rows)
+    ushift = 2 if comp == 0 else 1
+    u = 1 << ushift
+    nl = s2 >> ushift
+    t = np.full((len(s2), N_REF), NONE, np.int64)
+    rows_ = np.arange(len(s2))
+    any_ = avail.any(1)
+    first = np.argmax(avail, 1)
+    last = np.where(any_, w0[rows_, first], -1)
+
+    def local(w):
+        return np.where(w <= s2, s2 - w, w - s2 + REF_LEN)
+
+    for U in range(65):
+        on = (s2 > 0) & (U <= 2 * nl)
+        a = avail[:, U]
+        src = np.where(last < 0, NONE, local(last))
+        corner, left = on & (U == nl), on & (U < nl)
+        top = on & (U > nl)
+        for side in (0, REF_LEN):
+            t[corner, side] = np.where(a, 0, src)[corner]
+        for i in range(u):
+            p = s2 - w0[:, U] - i  # left: byte 2N - w
+            t[left, np.clip(p, 0, N_REF - 1)[left]] = np.where(a, p, src)[left]
+            o = REF_LEN + w0[:, U] + i - s2  # top: byte 65 + w - 2N
+            t[top, np.clip(o, 0, N_REF - 1)[top]] = np.where(a, o, src)[top]
+        last = np.where(on & a, w1[:, U], last)
+    return t.astype(np.uint8)
+
+
+def kernel_model2(lists, W, H, ctb_log2, cols=(), rows=()):
+    """What ref_sources_kernel writes for lists = [luma steps or None,
+    chroma steps or None] in one launch: blocks of THREADS TUs, the luma
+    worklist's first; per block its TUs' tables staged as one contiguous
+    run, then copied out 16 bytes a thread and store, thread t taking
+    bytes 16 t, 16 (t + THREADS), ... (every byte exactly once)."""
+    firsts, blocks = [], 0
+    for st in lists:
+        firsts.append(blocks)
+        if st is not None:
+            blocks += -(-(st.shape[0] * st.shape[1]) // THREADS)
+    outs = [None if st is None else np.full(st.shape[0] * st.shape[1] * N_REF,
+                                            77, np.uint8) for st in lists]
+    tables = [None if st is None else
+              tu_tables(st, c, W, H, ctb_log2, cols, rows).reshape(-1)
+              for c, st in enumerate(lists)]
+    for blk in range(blocks):
+        c = int(blk >= firsts[1])
+        base = (blk - firsts[c]) * THREADS * N_REF
+        total = min(THREADS * N_REF, len(tables[c]) - base)
+        stage = tables[c][base:base + total]
+        written = np.zeros(total, int)
+        for t in range(THREADS):
+            for b in range(16 * t, total, 16 * THREADS):
+                outs[c][base + b:base + b + 16] = stage[b:b + 16]
+                written[b:b + 16] += 1
+        assert (written == 1).all()
+    return [None if o is None else o.reshape(*st.shape[:2], 2, REF_LEN)
+            for o, st in zip(outs, lists)]
 
 
 def kernel_model(steps, comp, W, H, ctb_log2, cols=(), rows=()):
-    """What ref_sources_kernel writes, all TUs at once: lane l of a TU's
-    warp takes walk positions l + 32 r (r = 0..4); five ballots give the
-    mask; `first` is its lowest set bit; byte o of the output draws from
-    walk position 2N (o = 0 or 65), 2N - p (left, p = o) or 2N + p (top,
-    p = o - 65) for p - 1 < 2N; its source is the last available position
-    at or before that one, else `first`; padding steps and TUs with no
-    available position give 255."""
-    n, s = steps.shape[:2]
-    st = steps.reshape(-1, steps.shape[2]).astype(np.int64)
+    """The one-worklist launch (ref_sources): kernel_model2 with the other
+    list absent."""
+    lists = [None, None]
+    lists[comp] = steps
+    return kernel_model2(lists, W, H, ctb_log2, cols, rows)[comp]
+
+
+def position_availability(steps, comp, W, H, ctb_log2, cols=(), rows=()):
+    """§6.4.1 per walk position w = 0..128, as recon.ref_sources tests it
+    (in the picture, same tile, earlier in z-order, w <= 4N)."""
+    st = steps.reshape(-1, steps.shape[-1]).astype(np.int64)
     x, y, size = st[:, 0:1], st[:, 1:2], st[:, 2:3]
-    sub = 1 if comp == 0 else 2
-    cl = ctb_log2 - 2
-    ctbs_x = ((W >> 2) + (1 << cl) - 1) >> cl
+    sub, _, cl, ctbs_x = _geometry(comp, W, H, ctb_log2)
     s2 = 2 * size
-    w = np.arange(160)[None]  # 5 rounds of 32 lanes
+    w = np.arange(129)[None]
     left = w <= s2
     cx = np.where(left, x - 1, x + (w - s2 - 1))
     cy = np.where(left, y + (s2 - 1 - w), y - 1)
     lx, ly = cx * sub, cy * sub
+
+    def tile_of(v, bd):
+        return sum((v >= b).astype(np.int64) for b in bd) if bd else 0 * v
+
     z_cur = _z_addr((y * sub) >> 2, (x * sub) >> 2, cl, ctbs_x)
     zn = _z_addr(np.clip(ly, 0, H - 1) >> 2, np.clip(lx, 0, W - 1) >> 2, cl,
                  ctbs_x)
-    avail = ((w < 129) & (w <= 2 * s2) & (lx >= 0) & (ly >= 0) & (lx < W)
-             & (ly < H) & (zn < z_cur)
-             & (_tile_of(lx, cols) == _tile_of(x * sub, cols))
-             & (_tile_of(ly, rows) == _tile_of(y * sub, rows)))
-    bits = (avail.reshape(-1, 5, 32).astype(np.uint64)
-            << np.arange(32, dtype=np.uint64))
-    masks = bits.sum(-1).astype(np.uint64)  # [T, 5] words of 32 bits
-    first = np.full(len(st), -1)
-    for r in range(4, -1, -1):
-        m = masks[:, r]
-        low = np.log2((m & (~m + np.uint64(1))).astype(np.float64) + (m == 0))
-        first = np.where(m != 0, 32 * r + low.astype(np.int64), first)
-    out = np.full((len(st), 2 * REF_LEN), 255, np.uint8)
-    s2v = s2[:, 0]
-    for o in range(2 * REF_LEN):
-        side, p = divmod(o, REF_LEN)
-        pos = np.where(p == 0, s2v, np.where(side == 1, s2v + p, s2v - p))
-        drawn = (p == 0) | (p - 1 < s2v)
-        # last available at or before pos: its word, then the words below
-        word = pos >> 5
-        keep = (np.uint64(0xFFFFFFFF) >> (31 - (pos & 31)).astype(np.uint64))
-        cur = masks[np.arange(len(st)), np.clip(word, 0, 4)] & keep
-        src = np.full(len(st), -1)
-        done = cur != 0
-        src = np.where(done, 32 * word + np.floor(np.log2(
-            cur.astype(np.float64) + (cur == 0))).astype(np.int64), src)
-        for k in range(1, 5):
-            wk = word - k
-            ok = ~done & (wk >= 0)
-            mk = masks[np.arange(len(st)), np.clip(wk, 0, 4)]
-            hit = ok & (mk != 0)
-            src = np.where(hit, 32 * wk + np.floor(np.log2(
-                mk.astype(np.float64) + (mk == 0))).astype(np.int64), src)
-            done |= hit
-        src = np.where(src < 0, first, src)
-        val = np.where(src <= s2v, s2v - src, src - s2v + REF_LEN)
-        ok = drawn & (first >= 0) & (size[:, 0] > 0)
-        out[:, o] = np.where(ok, val, 255)
-    return out.reshape(n, s, 2, REF_LEN)
+    return ((w <= 2 * s2) & (lx >= 0) & (ly >= 0) & (lx < W) & (ly < H)
+            & (zn < z_cur) & (tile_of(lx, cols) == tile_of(x * sub, cols))
+            & (tile_of(ly, rows) == tile_of(y * sub, rows)))
 
 
 def _fuzz_args(case):
@@ -222,6 +313,62 @@ def test_source_tables_of_flagship_tiles_equal_jax(flagship_pair, comp):
     np.testing.assert_array_equal(kernel_model(*args), got)
 
 
+def _real_positions(steps, comp, W, H, ctb_log2, cols=(), rows=()):
+    """Per real TU and walk position w <= 4N: (per-position availability,
+    the availability of the unit that holds w)."""
+    s2, w0, w1, avail = unit_availability(steps, comp, W, H, ctb_log2, cols,
+                                          rows)
+    pos = position_availability(steps, comp, W, H, ctb_log2, cols, rows)
+    ushift = 2 if comp == 0 else 1
+    s2c = s2[:, None]
+    w = np.arange(129)[None]
+    U = np.where(w < s2c, w >> ushift, np.where(
+        w == s2c, s2c >> ushift, (s2c >> ushift) + 1 + ((w - s2c - 1) >> ushift)))
+    unit = np.take_along_axis(avail, np.clip(U, 0, 64), 1)
+    keep = (s2c > 0) & (w <= 2 * s2c)
+    return pos[keep], unit[keep]
+
+
+@pytest.mark.parametrize("case", F.CASES, ids=lambda c: f"seed{c.seed}")
+def test_block_availability_equals_position_availability_on_fuzz(case):
+    """Every walk position has its 4x4 block's availability, and the
+    unit's first and last positions bound it: the kernel's once-per-block
+    test is the per-position one on these worklists."""
+    pos, unit = _real_positions(*_fuzz_args(case))
+    assert pos.size > 0 and pos.any() and not pos.all()
+    np.testing.assert_array_equal(unit, pos)
+
+
+@pytest.mark.parametrize("comp", [0, 1])
+def test_block_availability_equals_position_availability_on_flagship(
+        flagship_pair, comp):
+    bp = flagship_pair
+    pos, unit = _real_positions(np.stack(bp.xs[comp], -1), comp, bp.width,
+                                bp.height, bp.ctb_log2)
+    np.testing.assert_array_equal(unit, pos)
+
+
+@pytest.mark.parametrize("tiles", [False, True], ids=["no_tiles", "tiles"])
+def test_two_worklist_launch_model_equals_ref_sources2(tiles):
+    """ref_sources2 on a plan's two worklists (CPU: the plain version of
+    each) equals the model of the one launch that takes both, and each
+    equals the one-worklist wrapper."""
+    bp = _plan(tiles)
+    d = B.plan_to_device(bp, torch.device("cpu"))
+    geo = dict(W=bp.width, H=bp.height, ctb_log2=bp.ctb_log2,
+               tile_col_bd=bp.tile_col_bd, tile_row_bd=bp.tile_row_bd)
+    RF.reset_launches()
+    got = RF.ref_sources2(d["steps"][0], d["steps"][1], **geo)
+    assert RF.LAUNCHES == {"ref_sources": 0}
+    model = kernel_model2([d["steps"][c].numpy() for c in range(2)],
+                          bp.width, bp.height, bp.ctb_log2, bp.tile_col_bd,
+                          bp.tile_row_bd)
+    for c in range(2):
+        np.testing.assert_array_equal(model[c], got[c].numpy())
+        assert torch.equal(got[c], RF.ref_sources(d["steps"][c], comp=c,
+                                                  **geo))
+
+
 def _bad(kind: str):
     case = F.CASES[0]
     steps = torch.from_numpy(F.inputs(case))
@@ -244,11 +391,15 @@ def _bad(kind: str):
         kw["tile_col_bd"] = tuple(range(8, 8 * 22, 8))
     elif kind == "device":
         steps = steps.to("meta")
+    elif kind == "side":
+        kw["W"] = case.width + 4  # a side of 4 mod 8
+    elif kind == "boundary":
+        kw["tile_row_bd"] = (20,)
     return steps, kw
 
 
 BAD = ("dtype", "fields", "rank", "layout", "comp", "ctb", "size", "tiles",
-       "device")
+       "device", "side", "boundary")
 
 
 @pytest.mark.parametrize("kind", BAD)
@@ -259,6 +410,45 @@ def test_wrapper_raises_on_bad_arguments(kind):
     RF.reset_launches()
     with pytest.raises((TypeError, ValueError)):
         RF.ref_sources(steps, **kw)
+    assert RF.LAUNCHES == {"ref_sources": 0}
+
+
+def _bad2(kind: str):
+    case = F.CASES[0]
+    luma = torch.from_numpy(F.inputs(case))
+    chroma = luma[:, :100].contiguous()
+    kw = dict(W=case.width, H=case.height, ctb_log2=case.ctb_log2)
+    if kind == "luma_dtype":
+        luma = luma.long()
+    elif kind == "chroma_fields":
+        chroma = chroma[..., :2].contiguous()
+    elif kind == "chroma_layout":
+        chroma = chroma.transpose(0, 1)
+    elif kind == "devices":
+        chroma = chroma.to("meta")
+    elif kind == "ctb":
+        kw["ctb_log2"] = 3
+    elif kind == "side":
+        kw["H"] = case.height - 4
+    elif kind == "boundary":
+        kw["tile_col_bd"] = (36,)
+    elif kind == "tiles":
+        kw["tile_row_bd"] = tuple(range(8, 8 * 24, 8))
+    return luma, chroma, kw
+
+
+BAD2 = ("luma_dtype", "chroma_fields", "chroma_layout", "devices", "ctb",
+        "side", "boundary", "tiles")
+
+
+@pytest.mark.parametrize("kind", BAD2)
+def test_two_worklist_wrapper_raises_on_bad_arguments(kind):
+    """ref_sources2 checks both worklists and the geometry before any
+    build or launch; nothing is counted."""
+    luma, chroma, kw = _bad2(kind)
+    RF.reset_launches()
+    with pytest.raises((TypeError, ValueError)):
+        RF.ref_sources2(luma, chroma, **kw)
     assert RF.LAUNCHES == {"ref_sources": 0}
 
 

@@ -17,6 +17,8 @@ wrapper's argument checks, the byte and multiply-add counts, and that
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -92,71 +94,161 @@ def jax_flat(classes, sc, case):
 
 # a numpy transcription of csrc/residual.cu
 
-SAMPLES = 1024  # samples a block
+THREADS = 256  # a block
+CU = Path(RS.__file__).resolve().parent.parent / "csrc" / "residual.cu"
+
+
+def _cu_table(name):
+    """The integers of a __constant__ table of csrc/residual.cu."""
+    body = re.search(rf"__constant__ int32_t {name}\[\d+\] = \{{([^}}]*)\}}",
+                     CU.read_text()).group(1)
+    return np.array([int(v) for v in body.replace("\n", " ").split(",")],
+                    np.int64)
+
+
+K_COS, K_DST4, K_LEVEL_SCALE = (_cu_table(n) for n in
+                                ("kCos", "kDst4", "kLevelScale"))
+FITS = 2 ** 31  # every sum the kernel forms must fit int32
+
+
+def _cos_at(m):
+    m &= 127
+    if m > 64:
+        m = 128 - m
+    return int(K_COS[m]) if m <= 32 else -int(K_COS[64 - m])
+
+
+def coef(n_pts, k, n):
+    """T_N[k][n] as the kernel derives it from kCos."""
+    return _cos_at((32 // n_pts) * k * (2 * n + 1))
+
+
+def idct(x, km):
+    """Idct<N, KM>::run on the last axis of x (int64): the partial
+    butterfly, inputs k >= km known zero and left out; every partial sum
+    checked to fit int32."""
+    n_pts = x.shape[-1]
+    assert not x[..., km:].any(), "a skipped input is not zero"
+    if n_pts == 1:
+        return 64 * x if km > 0 else 0 * x
+    h = n_pts // 2
+    e = idct(x[..., 0::2], (km + 1) // 2)
+    o = np.zeros_like(e)
+    for n in range(h):
+        for k in range(1, km, 2):
+            o[..., n] += coef(n_pts, k, n) * x[..., k]
+            assert np.abs(o[..., n]).max(initial=0) < FITS
+    out = np.concatenate([e + o, (e - o)[..., ::-1]], -1)
+    assert np.abs(out).max(initial=0) < FITS
+    return out
+
+
+def idst4(x):
+    return x @ K_DST4.reshape(4, 4)
+
+
+def transform(s, mode, used, x):
+    """transform<S>: DST-4, else the smallest of Idct<S, S/4>, <S, S/2>,
+    <S, S> that covers `used` leading inputs."""
+    if s == 4 and mode == 1:
+        return idst4(x)
+    km = s // 4 if used <= s // 4 else s // 2 if used <= s // 2 else s
+    return idct(x, km)
 
 
 def _clip16(v):
     return np.clip(v, -32768, 32767)
 
 
-def kernel_model(classes, sc, case):
-    """What residual_kernel writes: the launcher's block runs per class,
-    then per block its slot table (cap-padding rows and slots past the
-    class: -1, no field read), dequant in uint32 cast back to int32, the
-    column and row stages summed in int64 and checked to fit int32 (the
-    kernel sums in int32), skip and bypass, and the store at org + i *
-    pitch + j into zero-filled planes."""
+def launch_order(classes):
+    """(class index, first block) in the launcher's order: sizes 32 to 4,
+    each class a run of ceil(k / (256 / S)) blocks."""
+    order, blocks = [], 0
+    for size in (32, 16, 8, 4):
+        for i, cls in enumerate(classes):
+            if cls[1] == size:
+                order.append((i, blocks))
+                blocks += -(-cls[2].shape[0] // (THREADS // size))
+    return order, blocks
+
+
+def kernel_model(classes, sc, case, buckets=None):
+    """What residual_kernel writes, block by block in the launcher's
+    order: per block the TU slots (org < 0 or past the class: no field
+    read, nothing written), the dequant of each level in uint32 cast to
+    int32, then per warp (32 / S TUs) the rows and columns that hold a
+    nonzero level, the column pass on that many leading rows and the row
+    pass on that many leading columns (partial butterflies, or DST-4),
+    skip and bypass, and the row stores at org + i * pitch into
+    zero-filled planes. buckets: a dict that counts the Idct<S, KM>
+    instantiations the warps pick, per pass."""
     dims = RS.plane_dims(case)
     planes = [np.zeros(case.n * (h + PAD) * (w + PAD), np.int32)
               for h, w in dims]
-    first, blocks = [], 0
-    for cls in classes:
-        first.append(blocks)
-        blocks += -(-cls[2].shape[0] // (SAMPLES // cls[1] ** 2))
-    first.append(blocks)
-    ls = TABLES.level_scale.numpy().astype(np.int64)
-    for b in range(blocks):
-        ci = 0
-        while ci + 1 < len(classes) and b >= first[ci + 1]:
-            ci += 1
+    order, n_blocks = launch_order(classes)
+    for b in range(n_blocks):
+        ci, fb = [o for o in order if o[1] <= b][-1]  # the kernel's scan
         comp, s, coeffs, qp, dst, skip, byp, org = classes[ci]
         bd = RS.bit_depth(case, comp)
+        log2 = s.bit_length() - 1
         pitch = dims[comp][1] + PAD
-        tus = SAMPLES // (s * s)
-        slots = [tu if tu < coeffs.shape[0] and org[tu] >= 0 else -1
-                 for tu in range((b - first[ci]) * tus,
-                                 (b - first[ci] + 1) * tus)]
-        t_dct = TABLES.dct(s).numpy().astype(np.int64)
-        bd_shift = bd + int(np.log2(s)) - 5
-        for tu in slots:
-            if tu < 0:
+        tpb = THREADS // s
+        tu0 = (b - fb) * tpb
+        slots, mode, d = [], np.zeros(tpb, int), np.zeros((tpb, s, s),
+                                                           np.int64)
+        for t in range(tpb):
+            tu = tu0 + t
+            o = int(org[tu]) if tu < coeffs.shape[0] else -1
+            slots.append(o)
+            if o < 0:
+                mode[t] = 2  # no transform, nothing stored
                 continue
+            e = int(qp[tu]) // 6
+            mode[t] = (3 if byp[tu] else 2 if skip[tu]
+                       else 1 if s == 4 and dst[tu] else 0)
             lvl = coeffs[tu].astype(np.int64)
-            e, m6 = divmod(int(qp[tu]), 6)
-            v = (lvl.astype(np.uint32) * sc[(s, comp)].astype(np.uint32)
-                 * np.uint32(ls[m6]))
-            if e < bd_shift:
-                lo = (v.view(np.int32).astype(np.int64)
-                      + (1 << (bd_shift - e - 1))) >> (bd_shift - e)
+            if mode[t] == 3:
+                d[t] = lvl
+                continue
+            p = (lvl.astype(np.uint32) * sc[(s, comp)].astype(np.uint32)
+                 * np.uint32(K_LEVEL_SCALE[int(qp[tu]) - 6 * e]))
+            sh = bd + log2 - 5 - e
+            if sh > 0:
+                lo = ((p + np.uint32(1 << (sh - 1))).view(np.int32)
+                      .astype(np.int64) >> sh)
             else:
-                lo = (v << np.uint32(e - bd_shift)).view(np.int32).astype(
-                    np.int64)
-            d = _clip16(lo)
-            t = (TABLES.dst4.numpy().astype(np.int64)
-                 if s == 4 and dst[tu] else t_dct)
-            g = t.T @ d
-            assert np.abs(g).max(initial=0) < 2 ** 31
-            g = _clip16((g + 64) >> 7)
-            r = g @ t
-            assert np.abs(r).max(initial=0) < 2 ** 31
-            out = _clip16((r + (1 << (19 - bd))) >> (20 - bd))
-            if byp[tu]:
-                out = lvl
-            elif skip[tu]:
-                out = _clip16(((d << 7) + (1 << (19 - bd))) >> (20 - bd))
-            idx = (int(org[tu]) + np.arange(s)[:, None] * pitch
-                   + np.arange(s)[None])
-            planes[comp][idx] = out
+                lo = (p << np.uint32(-sh)).view(np.int32).astype(np.int64)
+            d[t] = _clip16(lo)
+        g = d.copy()
+        used = {}
+        for w0 in range(0, tpb, max(32 // s, 1)):  # a warp's TUs
+            tus = range(w0, w0 + max(32 // s, 1))
+            nz = d[list(tus)] != 0  # [TUs, rows, cols]
+            rows = max((r + 1 for r in range(s) if nz[:, r].any()), default=0)
+            cols = max((c + 1 for c in range(s) if nz[:, :, c].any()),
+                       default=0)
+            for t in tus:
+                used[t] = cols
+                if mode[t] <= 1:
+                    # columns: x[k] = D[k][j] for each column j
+                    y = transform(s, mode[t], rows, d[t].T)
+                    g[t] = _clip16((y.T + 64) >> 7)
+            if buckets is not None and any(mode[t] == 0 for t in tus):
+                for name, k in (("rows", rows), ("cols", cols)):
+                    km = s // 4 if k <= s // 4 else s // 2 if k <= s // 2 else s
+                    buckets[(name, s, km)] = buckets.get((name, s, km), 0) + 1
+        rnd, sh = 1 << (19 - bd), 20 - bd
+        for t, o in enumerate(slots):
+            if o < 0:
+                continue
+            if mode[t] == 3:
+                r = g[t]
+            elif mode[t] == 2:
+                r = _clip16((g[t] * 128 + rnd) >> sh)
+            else:
+                r = _clip16((transform(s, mode[t], used[t], g[t]) + rnd) >> sh)
+            idx = o + np.arange(s)[:, None] * pitch + np.arange(s)[None]
+            planes[comp][idx] = r
     return [p.reshape(case.n, h + PAD, w + PAD)
             for p, (h, w) in zip(planes, dims)]
 
@@ -210,6 +302,58 @@ def test_kernel_model_on_a_packed_plan():
     for other in (kernel_model(classes, sc, bp), jax_stage1(classes, sc, bp)):
         for c in range(3):
             np.testing.assert_array_equal(other[c], want[c].numpy())
+
+
+def test_kernel_tables_are_hevcs():
+    """The tables compiled into csrc/residual.cu are tables.ReconTables':
+    T_S[k][n] from kCos for every size, DST-4 and the level scales."""
+    for s in RS.SIZES:
+        t = np.array([[coef(s, k, n) for n in range(s)] for k in range(s)])
+        np.testing.assert_array_equal(t, TABLES.dct(s).numpy(), err_msg=str(s))
+    np.testing.assert_array_equal(K_DST4.reshape(4, 4), TABLES.dst4.numpy())
+    np.testing.assert_array_equal(K_LEVEL_SCALE, TABLES.level_scale.numpy())
+
+
+# (size, inputs that may be nonzero): every Idct<S, KM> the kernel
+# instantiates, and DST-4 (km None)
+BUTTERFLIES = [(s, km) for s in RS.SIZES
+               for km in (max(s // 4, 1), s // 2, s)] + [(4, None)]
+
+
+@pytest.mark.parametrize("s,km", BUTTERFLIES,
+                         ids=lambda v: "dst" if v is None else str(v))
+def test_butterfly_equals_the_direct_product(s, km):
+    """The partial butterfly of the kernel (Idct<S, KM>, or DST-4) equals
+    T^T x, the direct product of ops.recon, on saturated inputs: every
+    sign pattern of +-32768 in the first KM inputs that maximises an
+    output, all +-32768, and random ones; no partial sum leaves int32."""
+    rng = np.random.default_rng(s * 100 + (km or 0))
+    t = (TABLES.dst4 if km is None else TABLES.dct(s)).numpy().astype(np.int64)
+    k = 4 if km is None else km
+    worst = 32768 * np.sign(t[:k].T)  # [n, k]: the sign of each product
+    xs = np.concatenate([worst, -worst, np.full((1, k), 32768),
+                         np.full((1, k), -32768),
+                         rng.choice(np.array([-32768, 32767]), (64, k)),
+                         rng.integers(-32768, 32768, (64, k))])
+    x = np.zeros((len(xs), s), np.int64)
+    x[:, :k] = xs
+    got = idst4(x) if km is None else idct(x, km)
+    np.testing.assert_array_equal(got, x @ t)
+    # the worst sign patterns reach the largest sum these inputs allow
+    assert np.abs(got).max() == 32768 * np.abs(t[:k]).sum(0).max()
+
+
+def test_zero_skip_on_corner_levels():
+    """On the fuzz cases with levels in a TU corner, the model's warps
+    pick every Idct<S, KM> of both passes for every size, and it still
+    equals the plain version (test_kernel_model_equals_plain)."""
+    seen = {}
+    for case in F.CASES:
+        if case.corner:
+            kernel_model(*F.inputs(case), case, seen)
+    want = {(name, s, km) for name in ("rows", "cols") for s in RS.SIZES
+            for km in (max(s // 4, 1), s // 2, s)}
+    assert set(seen) == want
 
 
 def test_fuzz_covers_the_contract():
@@ -321,9 +465,9 @@ def test_residual_bytes_and_macs():
 
 
 def test_core_goes_through_the_stage_wrappers(monkeypatch):
-    """core hands the plan to residual.residual_planes once and each
-    worklist to refsrc.ref_sources (luma, then chroma), and walks on what
-    they return."""
+    """core hands the plan to residual.residual_planes once and both
+    worklists to refsrc.ref_sources2 once, and walks on what they
+    return."""
     bp, d = _plan(seed=9, height=64)
     cpu = torch.device("cpu")
     want = B.core(d, bp, cpu)
@@ -337,9 +481,9 @@ def test_core_goes_through_the_stage_wrappers(monkeypatch):
 
     monkeypatch.setattr(RS, "residual_planes",
                         spy("residual", RS.residual_planes))
-    monkeypatch.setattr(RF, "ref_sources", spy("ref_sources", RF.ref_sources))
+    monkeypatch.setattr(RF, "ref_sources2",
+                        spy("ref_sources2", RF.ref_sources2))
     got = B.core(d, bp, cpu)
-    assert calls == [("residual", None), ("ref_sources", 0),
-                     ("ref_sources", 1)]
+    assert calls == [("residual", None), ("ref_sources2", None)]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
