@@ -21,7 +21,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      may have), which must raise;
   4. the slice: HeicDecoder.decode(data, device="cuda") cold and warm;
      both intra kernels must have been launched by it, and the
-     loop-filter kernels twice (deblocking) and once (SAO) for its one
+     loop-filter kernels once each (deblocking, SAO) for its one
      core (batch.core, the stage that launches them), tiles 1, 22, 24, 38 and
      46 must equal the numpy reference (heif_tpu_torch.ops.ref_recon) bit for
      bit; stage times and MP/s;
@@ -48,12 +48,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      equal to the one-batch tile stacks of phase 4's path, and stitched
      equal to phase 4's decode), decode to device (readback=False), and
      decode_burst of 4 flagship images (48 tiles each); the intra
-     kernels must launch in each, and deblocking twice and SAO once for
+     kernels must launch in each, and deblocking and SAO once each for
      each core (a chunk); walls, MP/s, the host stage split,
      the intra kernel time per chunk, the device's idle share, and the
      one-batch decode() wall from the same run;
- 10. the tile split: decode(mesh_devices=1) equals phase 4 (the loop
-     filters twice and once a core), and a one-process nccl group runs decode_burst_sharded in a subprocess,
+ 10. the tile split: decode(mesh_devices=1) equals phase 4 (each loop
+     filter once a core), and a one-process nccl group runs decode_burst_sharded in a subprocess,
      equal to phase 4 and launching both kernels;
  11. the entry points a user runs: `python -m heif_tpu_torch decode
      IMAGE --trace -o x.npz` through cli.main equals phase 4, and its
@@ -69,7 +69,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      the flagship's 48 tiles re-encoded at 10 bits, CTB 64, irot 3):
      HeicDecoder.decode(device="cuda") cold and warm (uint16 planes of
      3024x4032 after rotation, warm equal to cold, both intra kernels
-     launched, the loop filters twice and once a core, tiles 1, 22, 24,
+     launched, each loop filter once a core, tiles 1, 22, 24,
      38 and 46 equal to ref_recon), the
      overlapped decode with readback at the default chunk and to device
      (int16), each equal to the one-batch decode, and both intra kernels
@@ -91,9 +91,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      grid's plan, of the synthetic 10-bit PCM batch and of the tall
      HEVC-tiles batch, then on every seeded case of
      heif_tpu_torch/utils/loopfilter_fuzz.py (SAO on the plain deblocked
-     planes); each kernel's time (the mean of LF_REPS launches, CUDA
-     events) on the flagship chunk and the Main-10 plan beside its plain
-     version's time and its byte bound (ops.loopfilter.loopfilter_bytes);
+     planes), through the wrappers (deblocking: one launch a call) and as
+     bare launches of their C entry points; each kernel's registers and
+     spills (nvcc -Xptxas -v); on the flagship chunk and the Main-10 plan
+     each kernel timed two ways (means of LF_REPS runs, CUDA events): (a)
+     the bare launch alone, arguments and outputs built beforehand,
+     cross-checked once by torch.profiler's device time for the kernel;
+     (c) the wrapper as core calls it, and its host microseconds a call;
+     beside the plain version's time and its byte bound
+     (ops.loopfilter.loopfilter_bytes);
  15. the stage-1 kernels against their plain PyTorch versions on the
      card, bit for bit: the residual kernel (csrc/residual.cu,
      ops.residual.residual_planes vs residual_plain) and the source-table
@@ -116,10 +122,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      residual the eager route's float64 bmm pairs on the same classes.
 Phases 4, 9, 10 and 12 require, for every core (a batch or chunk), one
 residual launch, one source-table launch and, where the slice header
-turns them on, two deblocking launches and one SAO launch.
+turns them on, one deblocking launch and one SAO launch.
 The last two lines are a JSON summary of the kernels (the CABAC kernels
-with phase 6's figures; "ms" is the kernel alone where phase 15 times
-it so) and the card's nvidia-smi line before a final
+with phase 6's figures; "ms" is the kernel alone where phase 14 or 15
+times it so) and the card's nvidia-smi line before a final
 {"ok": true, "device": {...}} line.
 
     python3 chip_smoke.py --stage1
@@ -129,6 +135,12 @@ busy time and operations), after building what they need, and prints
 their numbers as one JSON line last; it runs on a tree from before the
 stage-1 kernels' redesign too, so that two trees can be compared in one
 call.
+
+    python3 chip_smoke.py --loopfilter
+
+does the same for phase 14 and phase 9's profiled decode; it runs on a
+tree from before the loop-filter kernels' redesign too (a deblocking
+launch a pass then).
 Without a CUDA device it exits 2 before doing anything. Any import of
 jax or heif_tpu fails inside this script: the port runs without them.
 """
@@ -814,7 +826,7 @@ def _launched(what, header) -> dict:
     fail unless both intra kernels ran, and unless every core (one launch
     of each intra kernel) launched the residual kernel once, the source
     tables once (luma and chroma worklists together), and deblocking
-    twice and SAO once where the slice header turns them on."""
+    and SAO once each where the slice header turns them on."""
     from heif_tpu_torch.ops import intra as I
     from heif_tpu_torch.ops import loopfilter as LF
     from heif_tpu_torch.ops import refsrc as RF
@@ -826,7 +838,7 @@ def _launched(what, header) -> dict:
             raise SystemExit(f"{what} never launched the {name} kernel")
     cores = counts["luma"]
     want = {"deblock": (0 if header.slice_deblocking_filter_disabled_flag
-                        else 2 * cores),
+                        else cores),
             "sao": (cores if header.slice_sao_luma_flag
                     or header.slice_sao_chroma_flag else 0)}
     if dict(LF.LAUNCHES) != want:
@@ -1412,14 +1424,108 @@ def intra_planes(bp, dev):
     return [*calls["luma"][0](), *calls["chroma"][0]()], d
 
 
+# the loop-filter kernels by name as the profiler and ptxas report them
+LF_KERNELS = {"deblock": "deblock_kernel", "sao": "sao_kernel"}
+
+
+def loopfilter_bare(name: str, planes, d, bp):
+    """A bare launch of a loop-filter kernel's C entry point on `planes`,
+    its arguments and outputs built once: (run, outputs, launches), run()
+    the `launches` launches of one wrapper call on the current stream,
+    returning the largest magnitude of the C entry's codes; None where
+    the stage is off. Nothing is counted. Takes the deblocking entry of
+    this tree (one launch) or of a tree from before its redesign
+    (heif_deblock(pass, ...): two launches, the second in place on the
+    outputs)."""
+    import ctypes
+
+    import torch
+
+    from heif_tpu_torch.ops import _build
+    from heif_tpu_torch.ops import loopfilter as LF
+    from heif_tpu_torch.tables import tables_on
+
+    lib = _build.load()
+    dev = planes[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n, H, W = planes[0].shape[0], bp.height, bp.width
+
+    def ptrs(ps):
+        return [p.data_ptr() for p in ps]
+
+    def strides(ps):
+        return [s for p in ps for s in (p.stride(0), p.stride(1))]
+
+    if name == "deblock":
+        if bp.deblock_disabled:
+            return None
+        t = tables_on(dev)
+        outs = [torch.empty(p.shape, dtype=torch.int32, device=dev)
+                for p in planes]
+        tail = [d["qp_map"].data_ptr(), d["nf_map"].data_ptr(),
+                t.beta.data_ptr(), t.tc.data_ptr(), t.chroma_qp_lut.data_ptr(),
+                n, H, W, bp.beta_off, bp.tc_off, bp.cb_qp_off, bp.cr_qp_off,
+                bp.bit_depth_y, bp.bit_depth_c, stream]
+        if lib.heif_deblock.argtypes[0] is ctypes.c_int:  # a launch a pass
+            calls = [[0, *ptrs(outs), *ptrs(planes), *strides(planes),
+                      d["vert_edges"].data_ptr(), *tail],
+                     [1, *ptrs(outs), *ptrs(outs), *strides(outs),
+                      d["horiz_edges"].data_ptr(), *tail]]
+        else:
+            calls = [[*ptrs(outs), *ptrs(planes), *strides(planes),
+                      d["vert_edges"].data_ptr(), d["horiz_edges"].data_ptr(),
+                      *tail]]
+
+        def run():
+            return max(abs(lib.heif_deblock(*a)) for a in calls)
+        return run, outs, len(calls)
+    on = LF.sao_on(bp)
+    if not any(on):
+        return None
+    outs = [torch.empty(p.shape, dtype=torch.int32, device=dev) if o else None
+            for p, o in zip(planes, on)]
+    rows, cols = LF._ctbs(bp)
+    args = [None if o is None else o.data_ptr() for o in outs]
+    args += [*ptrs(planes), *strides(planes), d["sao"].data_ptr(),
+             d["nf_map"].data_ptr(), n, H, W, rows, cols, bp.ctb_log2,
+             bp.bit_depth_y, bp.bit_depth_c, stream]
+    return (lambda: abs(lib.heif_sao(*args)),
+            [p if o is None else o for p, o in zip(planes, outs)], 1)
+
+
+def planes_copy(src, got):
+    """A call that copies, with torch, each input plane that a loop filter
+    replaced (got[i] is not src[i]) into a new contiguous plane: the bytes
+    the kernel must move without its work, a yardstick of what moving
+    them takes (not a computation of the same function)."""
+    import torch
+
+    pairs = [(torch.empty(g.shape, dtype=g.dtype, device=g.device), s)
+             for s, g in zip(src, got) if g is not s]
+
+    def run():
+        for o, i in pairs:
+            o.copy_(i)
+    return run
+
+
 def check_filters(label: str, planes, d, bp, timed: bool) -> dict:
     """Both loop-filter kernels against their plain versions on the same
-    inputs, bit for bit: deblocking on `planes`, SAO on the plain
-    deblocked planes. Per kernel the largest error and the plain
-    version's comparison run (CUDA events); timed: also the kernel's
-    mean over LF_REPS launches and its bound (loopfilter_bytes over the
-    HBM rate; a few dozen integer operations a sample are far below the
-    card's integer rate, so bytes bound both)."""
+    inputs, bit for bit, through their wrappers and as bare launches of
+    their C entry points (loopfilter_bare): deblocking on `planes`, SAO
+    on the plain deblocked planes. Per kernel the largest error and the
+    plain version's comparison run (CUDA events). timed: each kernel two
+    ways, the mean over LF_REPS runs by CUDA events: (a) the bare launch
+    alone ("ms"; deblocking's covers all of its launches a call),
+    cross-checked once by torch.profiler ("profiler_ms"); (c) the wrapper
+    as core calls it ("wrapper_ms"), and the host microseconds of one
+    wrapper call ("wrapper_host_us", the mean of LF_REPS enqueues); then
+    the bound (loopfilter_bytes over the HBM rate; a few dozen integer
+    operations a sample are far below the card's integer rate, so bytes
+    bound both) and a torch copy of the planes it replaces ("copy_ms",
+    planes_copy)."""
+    import torch
+
     from heif_tpu_torch.ops import loopfilter as LF
 
     out = {}
@@ -1428,19 +1534,50 @@ def check_filters(label: str, planes, d, bp, timed: bool) -> dict:
                               ("sao", LF.sao, LF.sao_plain)):
         got = kern(src, d, bp)
         want, plain_ms = timed_once(lambda: plain(src, d, bp))
-        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+        err = max_err(f"{label} {name}", got, want)
         diff = sum(int((a != b).sum()) for a, b in zip(got, want))
         res = {"max_abs_err": err, "plain_ms": plain_ms}
         line = (f"[loopfilter] {label} {name}: max_abs_err={err} "
                 f"mismatches={diff}")
+        bare = loopfilter_bare(name, src, d, bp)
+        if bare is not None:
+            run, outs, launches = bare
+            rc = run()
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise SystemExit(f"{label}: the bare {name} launch returned "
+                                 f"{rc}")
+            err = max_err(f"{label} bare {name}", outs, want)
+            bdiff = sum(int((a != b).sum()) for a, b in zip(outs, want))
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            diff += bdiff
+            line += f" (bare launch {err}, {bdiff} mismatches)"
         if timed:
-            res["ms"] = cuda_ms(lambda k=kern, x=src: k(x, d, bp), LF_REPS)
+            res["ms"] = cuda_ms(run, LF_REPS)
+            res["profiler_ms"] = profiler_ms(run, LF_REPS, LF_KERNELS[name],
+                                             launches)
+            res["wrapper_ms"] = cuda_ms(lambda k=kern, x=src: k(x, d, bp),
+                                        LF_REPS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LF_REPS):
+                kern(src, d, bp)
+            res["wrapper_host_us"] = ((time.perf_counter() - t0) * 1e6
+                                      / LF_REPS)
+            torch.cuda.synchronize()
             res["bound_ms"] = bound_ms(LF.loopfilter_bytes(name, bp.n, bp))
-            line += (f"; kernel {res['ms']:.4f} ms (mean of {LF_REPS}), plain "
-                     f"{res['plain_ms']:.2f} ms, bound {res['bound_ms']:.4f} "
-                     f"ms (bytes)")
+            res["copy_ms"] = cuda_ms(planes_copy(src, got), LF_REPS)
+            prof = ("no device time in the profiler"
+                    if res["profiler_ms"] is None
+                    else f"profiler {res['profiler_ms']:.4f} ms")
+            line += (f"; kernel alone {res['ms']:.4f} ms (mean of {LF_REPS} "
+                     f"bare runs; {prof}), wrapper {res['wrapper_ms']:.4f} ms "
+                     f"and {res['wrapper_host_us']:.1f} us of host a call, "
+                     f"plain {plain_ms:.2f} ms, bound {res['bound_ms']:.4f} "
+                     f"ms (bytes), torch copy of its planes "
+                     f"{res['copy_ms']:.4f} ms")
         print(line)
-        if diff:
+        if diff or res["max_abs_err"]:
             raise SystemExit(f"{label}: the {name} kernel disagrees with its "
                              "plain version")
         out[name] = res
@@ -1454,42 +1591,56 @@ def check_loopfilter(sps, pps, slices, sts, plans, main10_plan, dev,
     the intra planes of a flagship chunk (timed: the main path's shape),
     the Main-10 grid's plan (timed), the synthetic 10-bit PCM batch and
     the tall HEVC-tiles batch (plans: phase 3's), then on every case of
-    utils.loopfilter_fuzz. Returns per kernel the flagship chunk's
-    numbers with the largest error over all inputs."""
+    utils.loopfilter_fuzz; each kernel's registers and spills (ptxas)
+    once. Returns per kernel the flagship chunk's numbers with the
+    largest error over all inputs, the Main-10 plan's under "main10" and
+    ptxas's figures under "registers"."""
     from heif_tpu_torch.ops import batch as B
     from heif_tpu_torch.utils import loopfilter_fuzz as LFF
 
+    regs = {}
+    for mangled, r in ptxas_report(["loopfilter.cu"]).items():
+        print(f"[loopfilter] {mangled}: {r.get('registers')} registers, "
+              f"{r.get('spill_stores')} B spill stores, "
+              f"{r.get('spill_loads')} B spill loads, {r.get('smem')} B "
+              "static shared memory (ptxas -v)")
+        regs[mangled] = r
     chunk = B.schedule_hints(None, sps, pps, len(slices))["chunk"]
     bp = B.pack_batch(sts[:chunk], sps, pps, slices[:chunk])
     out = check_filters(
         f"flagship chunk {bp.n}x{bp.height}x{bp.width} CTB {1 << bp.ctb_log2}",
         *intra_planes(bp, dev), bp, True)
-    inputs = [
-        (f"main-10 grid {main10_plan.n}x{main10_plan.height}x"
-         f"{main10_plan.width} CTB {1 << main10_plan.ctb_log2}", main10_plan,
-         True),
-        (f"synthetic {plans['synth'].n}x{plans['synth'].height}x"
-         f"{plans['synth'].width} 10-bit+PCM", plans["synth"], False),
-        (f"tall {plans['tall'].n}x{plans['tall'].height}x"
-         f"{plans['tall'].width} in 2x2 HEVC tiles", plans["tall"], False),
-    ]
-    for label, p, timed in inputs:
-        res = check_filters(label, *intra_planes(p, dev), p, timed)
-        for name in out:
+
+    def fold(res):
+        for name in LF_KERNELS:
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                            res[name]["max_abs_err"])
+
+    main10 = check_filters(
+        f"main-10 grid {main10_plan.n}x{main10_plan.height}x"
+        f"{main10_plan.width} CTB {1 << main10_plan.ctb_log2}",
+        *intra_planes(main10_plan, dev), main10_plan, True)
+    fold(main10)
+    for label, p in (
+        (f"synthetic {plans['synth'].n}x{plans['synth'].height}x"
+         f"{plans['synth'].width} 10-bit+PCM", plans["synth"]),
+        (f"tall {plans['tall'].n}x{plans['tall'].height}x"
+         f"{plans['tall'].width} in 2x2 HEVC tiles", plans["tall"]),
+    ):
+        fold(check_filters(label, *intra_planes(p, dev), p, False))
     for case in LFF.CASES:
         planes, d = LFF.tensors(case, dev)
-        res = check_filters(f"fuzz seed {case.seed} {case.n}x{case.height}x"
-                            f"{case.width}", planes, d, case, False)
-        for name in out:
-            out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
-                                           res[name]["max_abs_err"])
-    for name in out:
-        print(f"[loopfilter] {name}: flagship chunk {out[name]['ms']:.4f} ms, "
-              f"plain {out[name]['plain_ms']:.2f} ms, bound "
-              f"{out[name]['bound_ms']:.4f} ms; every input bit-exact on "
-              f"{card}")
+        fold(check_filters(f"fuzz seed {case.seed} {case.n}x{case.height}x"
+                           f"{case.width}", planes, d, case, False))
+    for name in LF_KERNELS:
+        r, m = out[name], main10[name]
+        print(f"[loopfilter] {name}: flagship chunk alone {r['ms']:.4f} ms, "
+              f"wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.2f} "
+              f"ms, bound {r['bound_ms']:.4f} ms; Main-10 plan alone "
+              f"{m['ms']:.4f} ms, wrapper {m['wrapper_ms']:.4f} ms, bound "
+              f"{m['bound_ms']:.4f} ms; every input bit-exact on {card}")
+    out["main10"] = main10
+    out["registers"] = regs
     return out
 
 
@@ -1633,10 +1784,12 @@ def stage1_bare(d, bp, geometry) -> dict:
     return out
 
 
-def profiler_ms(fn, reps: int, kernel: str):
-    """Mean device time of the kernel whose name holds `kernel` over reps
-    runs of fn(), from torch.profiler's key_averages(); None where the
-    profiler shows no device time for it."""
+def profiler_ms(fn, reps: int, kernel: str, launches: int = 1):
+    """Device time of one run of fn(), which launches the kernels whose
+    names hold `kernel` `launches` times, from torch.profiler's
+    key_averages() over reps runs: the mean of the launches it recorded,
+    times `launches`; None where the profiler shows no device time for
+    them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1649,7 +1802,7 @@ def profiler_ms(fn, reps: int, kernel: str):
             if kernel in e.key and str(e.device_type).endswith("CUDA")]
     us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in hits)
     count = sum(e.count for e in hits)
-    return us / 1e3 / count if us > 0 and count else None
+    return us / 1e3 / count * launches if us > 0 and count else None
 
 
 def check_stage1_kernels(label, d, bp, geometry, timed: bool) -> dict:
@@ -1866,6 +2019,37 @@ def stage1_only(card, dev) -> int:
     return 0
 
 
+def loopfilter_only(card, dev) -> int:
+    """`--loopfilter`: phase 14 and phase 9's profiled overlapped decode
+    alone, for comparing two trees in one call (this script runs on a
+    tree from before the loop-filter kernels' redesign too). Builds what
+    they need: the native entropy library and the kernels, the flagship
+    and Main-10 plans, the synthetic and tall plans of phase 3. Prints
+    one JSON line of the numbers last."""
+    from heif_tpu_torch import native
+    from heif_tpu_torch.ops import _build
+    from heif_tpu_torch.ops import batch as B
+
+    native.load()
+    _build.load()
+    sps, pps, _, slices, sts = load_flagship(open(ASSET, "rb").read())
+    m_sps, m_pps, _, m_slices, m_sts = load_flagship(open(MAIN10_GRID,
+                                                          "rb").read())
+    main10_plan = B.pack_batch(m_sts, m_sps, m_pps, m_slices)
+    lf = check_loopfilter(sps, pps, slices, sts, synthetic_plans(),
+                          main10_plan, dev, card)
+    prof = profile_overlapped(sps, pps, slices, dev, card)
+    keys = ("ms", "profiler_ms", "wrapper_ms", "wrapper_host_us", "plain_ms",
+            "bound_ms", "copy_ms", "max_abs_err")
+    print(json.dumps({
+        "loopfilter": {name: {k: lf[name].get(k) for k in keys}
+                       for name in LF_KERNELS},
+        "loopfilter_main10": {name: {k: lf["main10"][name].get(k)
+                                     for k in keys} for name in LF_KERNELS},
+        "registers": lf["registers"], "phase9": prof, "card": card}))
+    return 0
+
+
 def main(argv) -> int:
     import torch
 
@@ -1891,6 +2075,9 @@ def main(argv) -> int:
     if argv == ["--stage1"]:
         print(f"[card] {card}")
         return stage1_only(card, dev)
+    if argv == ["--loopfilter"]:
+        print(f"[card] {card}")
+        return loopfilter_only(card, dev)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2053,13 +2240,16 @@ def main(argv) -> int:
             "bound_ms": plain[key]["bound_ms"], "bound_by": "bytes",
             "library_ms": None, **golden[key],
         })
-    for name in ("deblock", "sao"):
+    for name in LF_KERNELS:
+        r = lf[name]
         kernels.append({
             "name": name, "route": "cuda", "source": LF_SOURCE,
             "replaces": LF_REPLACES[name], "launches": launches[name],
-            "max_abs_err": lf[name]["max_abs_err"], "ms": lf[name]["ms"],
-            "plain_ms": lf[name]["plain_ms"], "bound_ms": lf[name]["bound_ms"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
+            "profiler_ms": r["profiler_ms"], "wrapper_ms": r["wrapper_ms"],
+            "wrapper_host_us": r["wrapper_host_us"],
         })
     for name, (source, replaces) in STAGE1.items():
         r = stage1[name]

@@ -55,11 +55,10 @@ _SIGNATURES = {
     # events, dbg, state, words, tape, c0, tbl, sb_fwd, sb_inv, co_fwd,
     # co_inv, sig4, B, W, S_env, S, stream
     "heif_cabac_gen": [_vp] * 12 + [_i] * 4 + [_vp],
-    # pass, y, cb, cr, y_in, cb_in, cr_in, (batch, row) strides of the
-    # three inputs, edges, qp, nf, beta, tc, cqp, n, H, W, beta_off,
-    # tc_off, cb_off, cr_off, bd_y, bd_c, stream
-    "heif_deblock": [_i] + [_vp] * 6 + [_ll] * 6 + [_vp] * 6 + [_i] * 9
-                    + [_vp],
+    # y, cb, cr, y_in, cb_in, cr_in, (batch, row) strides of the three
+    # inputs, vert_edges, horiz_edges, qp, nf, beta, tc, cqp, n, H, W,
+    # beta_off, tc_off, cb_off, cr_off, bd_y, bd_c, stream
+    "heif_deblock": [_vp] * 6 + [_ll] * 6 + [_vp] * 7 + [_i] * 9 + [_vp],
     # y, cb, cr, y_in, cb_in, cr_in, strides as above, sao, nf, n, H, W,
     # R, C, ctb_log2, bd_y, bd_c, stream
     "heif_sao": [_vp] * 6 + [_ll] * 6 + [_vp] * 2 + [_i] * 8 + [_vp],

@@ -11,10 +11,10 @@ tests/test_torch_overlap.py hold the copy against the original.
 Device half (torch): `core` is the port of heif_tpu.ops.batch._core.
 Transform classes are flattened across tiles (one dense [k, s, s] batch
 per (component, size) class) and go through one residual launch
-(ops.residual), the reference-source tables take one launch a worklist
-(ops.refsrc), the intra walks run all tiles at once (one CUDA block per
-tile), and deblock / SAO run over the tile axis (ops.loopfilter: two
-deblocking launches and one SAO launch a batch).
+(ops.residual), the reference-source tables one launch for both
+worklists (ops.refsrc), the intra walks run all tiles at once (one CUDA
+block per tile), and deblock / SAO run over the tile axis
+(ops.loopfilter: one deblocking launch and one SAO launch a batch).
 
 Entry points: reconstruct_tiles (all tiles of an image in one batch, the
 path of HeicDecoder.decode) and the bulk paths, which cut the tiles into
@@ -599,7 +599,7 @@ def core(d: dict, bp: BatchPlan, device: torch.device, stats=None) -> list:
         )
         planes = [y, cb, cr]
 
-    # ---- stage 3: deblocking (two launches on CUDA) ----
+    # ---- stage 3: deblocking (one launch on CUDA) ----
     if not bp.deblock_disabled:
         with _stage(stats, "deblock", device):
             planes = LF.deblock(planes, d, bp)

@@ -4,13 +4,14 @@
 lines 565-660). No Pallas kernel stands behind them there: XLA fuses
 their jnp code. On a CUDA tensor each wrapper launches a kernel of
 csrc/loopfilter.cu (built on first use by ops._build) on the current
-stream and raises if the launch fails: `deblock` launches twice (all
-vertical edges of the three planes, then all horizontal ones), `sao`
-once for every enabled plane. On a CPU tensor each runs its plain
-version, `deblock_plain` / `sao_plain`: recon.deblock_luma_pass,
-deblock_chroma_pass and sao_component composed as `_core` composes the
-JAX passes, which is also the kernels' oracle on the card. There is no
-fallback from one to the other. LAUNCHES counts kernel launches only.
+stream and raises if the launch fails: `deblock` launches once for the
+three planes (every vertical edge, then every horizontal one, region by
+region in shared memory), `sao` once for every enabled plane. On a CPU
+tensor each runs its plain version, `deblock_plain` / `sao_plain`:
+recon.deblock_luma_pass, deblock_chroma_pass and sao_component composed
+as `_core` composes the JAX passes, which is also the kernels' oracle on
+the card. There is no fallback from one to the other. LAUNCHES counts
+kernel launches only.
 
 Both take the planes as the intra walk leaves them (Y [N, H, W], Cb and
 Cr [N, H/2, W/2], int32; views with unit column stride are fine), `d`
@@ -99,6 +100,16 @@ def _plane_args(planes) -> list:
             + [s for p in planes for s in (p.stride(0), p.stride(1))])
 
 
+def _outputs(planes, on) -> list:
+    """New contiguous int32 planes shaped as `planes` where `on` says so
+    (None elsewhere), views of one flat buffer: one allocation a call.
+    Each plane starts 16-byte aligned (its samples are a multiple of 4)."""
+    sizes = [p.numel() if o else 0 for p, o in zip(planes, on)]
+    flat = torch.empty(sum(sizes), dtype=torch.int32, device=planes[0].device)
+    return [v.view(p.shape) if o else None
+            for v, p, o in zip(flat.split(sizes), planes, on)]
+
+
 def deblock(planes, d: dict, bp) -> list:
     """Deblocking (H.265 §8.7.2) of N tiles: [Y, Cb, Cr] int32 in, new
     [Y, Cb, Cr] out (contiguous on CUDA). Luma edges every 8 samples,
@@ -112,22 +123,19 @@ def deblock(planes, d: dict, bp) -> list:
         return deblock_plain(planes, d, bp)
     from heif_tpu_torch.ops import _build
 
-    lib = _build.load()
     tables = tables_on(dev)
-    out = [torch.empty(p.shape, dtype=torch.int32, device=dev) for p in planes]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # pass 0 reads the inputs, pass 1 works in place on its outputs
-    for pss, src, edges in ((0, planes, d["vert_edges"]),
-                            (1, out, d["horiz_edges"])):
-        rc = lib.heif_deblock(
-            pss, *[p.data_ptr() for p in out], *_plane_args(src),
-            edges.data_ptr(), d["qp_map"].data_ptr(), d["nf_map"].data_ptr(),
-            tables.beta.data_ptr(), tables.tc.data_ptr(),
-            tables.chroma_qp_lut.data_ptr(), planes[0].shape[0], bp.height,
-            bp.width, bp.beta_off, bp.tc_off, bp.cb_qp_off, bp.cr_qp_off,
-            bp.bit_depth_y, bp.bit_depth_c, stream)
-        _raise_on(rc, "heif_deblock")
-        LAUNCHES["deblock"] += 1
+    out = _outputs(planes, (True, True, True))
+    rc = _build.load().heif_deblock(
+        *[p.data_ptr() for p in out], *_plane_args(planes),
+        d["vert_edges"].data_ptr(), d["horiz_edges"].data_ptr(),
+        d["qp_map"].data_ptr(), d["nf_map"].data_ptr(),
+        tables.beta.data_ptr(), tables.tc.data_ptr(),
+        tables.chroma_qp_lut.data_ptr(), planes[0].shape[0], bp.height,
+        bp.width, bp.beta_off, bp.tc_off, bp.cb_qp_off, bp.cr_qp_off,
+        bp.bit_depth_y, bp.bit_depth_c,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "heif_deblock")
+    LAUNCHES["deblock"] += 1
     return out
 
 
@@ -143,8 +151,7 @@ def sao(planes, d: dict, bp) -> list:
         return sao_plain(planes, d, bp)
     from heif_tpu_torch.ops import _build
 
-    out = [torch.empty(p.shape, dtype=torch.int32, device=dev) if o else None
-           for p, o in zip(planes, on)]
+    out = _outputs(planes, on)
     rows, cols = _ctbs(bp)
     rc = _build.load().heif_sao(
         *[None if o is None else o.data_ptr() for o in out],

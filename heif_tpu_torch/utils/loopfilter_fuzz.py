@@ -26,7 +26,14 @@ decoded stream rarely does, in the layouts batch.plan_to_device ships:
   heaped at 28-31 (the four bands wrap past 31), edge classes 0-3 with
   the spec's offset signs; the four corner CTBs of the first tile take
   edge classes 0-3, so every class meets the picture's edges;
-- stages switched off: deblocking, SAO on luma, SAO on chroma, both.
+- stages switched off: deblocking, SAO on luma, SAO on chroma, both;
+- for the kernels' regions (csrc/loopfilter.cu: a block owns 32 x 64
+  luma samples and the chroma under them, with a halo): pictures larger
+  than a region on both sides and not a multiple of it (136x200), a
+  10-bit CTB-64 picture with chroma QP offsets and chroma sides of 4 mod
+  8 (72x136), and flat 8x8 patches on both sides of every region border
+  (`flat_borders`), so that the strong luma filter falls on the regions'
+  edges.
 
 Numpy only; the same case gives the same arrays everywhere
 (tests/test_torch_loopfilter_stage.py holds the plain versions against
@@ -60,6 +67,8 @@ class Case:
     deblock_disabled: bool = False
     sao_luma: bool = True
     sao_chroma: bool = True
+    flat_borders: tuple = ()  # luma (rows, columns): flat patches beside
+    # every multiple of them (chroma: half of each)
 
 
 CASES = (
@@ -75,6 +84,10 @@ CASES = (
          sao_chroma=False),                         # SAO off
     Case(8, 2, 24, 16, 4, 10, 10, 2, 4, -1, 1),     # chroma 12x8: one
     # edge row (8, partial), no edge column
+    Case(9, 2, 136, 200, 5),                        # past a region both
+    # ways, not a multiple of it; chroma 68x100: both last edges partial
+    Case(10, 1, 72, 136, 6, 10, 10, 3, -2, 7, -5),  # CTB 64; chroma 36x68
+    Case(11, 2, 96, 192, 5, 8, 8, 6, 6, flat_borders=(32, 64)),
 )
 
 _QP_ENDS = (0, 15, 16, 17, 18, 50, 51)
@@ -89,6 +102,26 @@ def _planes(rng, n: int, h: int, w: int, bd: int) -> np.ndarray:
     mask = np.repeat(np.repeat(flat, 8, 1), 8, 2)[:, :h, :w]
     p = np.where(mask, (1 << (bd - 1)) + (p & 7), p)
     return np.clip(p, 0, (1 << bd) - 1).astype(np.int32)
+
+
+def _flatten_borders(rng, p: np.ndarray, rows: int, cols: int,
+                     bd: int) -> None:
+    """Make every 8x8 patch of `p` [n, h, w] that touches a multiple of
+    `rows` (from above or below) or of `cols` (from the left or right)
+    flat: one level a patch, mid-grey plus a step of up to 2 (in 8-bit
+    units), so that the edges between them take the strong luma filter
+    wherever the QP allows it."""
+    n, h, w = p.shape
+    ph, pw = h // 8, w // 8
+    ys = np.arange(ph) * 8
+    xs = np.arange(pw) * 8
+    beside_r = (ys % rows == 0) | ((ys + 8) % rows == 0)
+    beside_c = (xs % cols == 0) | ((xs + 8) % cols == 0)
+    flat = beside_r[:, None] | beside_c[None, :]
+    level = (1 << (bd - 1)) + rng.integers(-2, 3, (n, ph, pw)) * (1 << (bd - 8))
+    patches = np.repeat(np.repeat(level, 8, 1), 8, 2)
+    mask = np.repeat(np.repeat(flat, 8, 0), 8, 1)
+    p[:, mask] = patches[:, mask]
 
 
 def _edges(rng, shape) -> np.ndarray:
@@ -145,6 +178,12 @@ def inputs(case: Case) -> tuple:
     planes = [_planes(rng, n, H, W, case.bit_depth_y),
               _planes(rng, n, H // 2, W // 2, case.bit_depth_c),
               _planes(rng, n, H // 2, W // 2, case.bit_depth_c)]
+    if case.flat_borders:
+        rows, cols = case.flat_borders
+        for p, sub, bd in ((planes[0], 1, case.bit_depth_y),
+                           (planes[1], 2, case.bit_depth_c),
+                           (planes[2], 2, case.bit_depth_c)):
+            _flatten_borders(rng, p, rows // sub, cols // sub, bd)
     m = (n, H // 4, W // 4)
     lo = -6 * (case.bit_depth_y - 8)
     qp = rng.integers(lo, 52, m)

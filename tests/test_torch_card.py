@@ -42,7 +42,7 @@ On a card (`cuda`-marked; each skips without one):
   versions on every seeded case of utils.loopfilter_fuzz, on contiguous
   planes and on views of padded planes (as the intra walk leaves them),
   and on the synthetic 10-bit PCM batch's intra planes; every fixture
-  kind's decode launches deblocking twice and SAO once where its slice
+  kind's decode launches deblocking and SAO once each where its slice
   header turns them on;
 - the residual and source-table kernels (ops.residual, ops.refsrc) vs
   their plain versions on every seeded case of utils.residual_fuzz and
@@ -389,7 +389,7 @@ def _filters_match_plain(planes, d, bp):
         LF.reset_launches()
         _same(LF.deblock(src, d, bp), want)
         _same(LF.sao(want, d, bp), want_sao)
-        assert LF.LAUNCHES == {"deblock": 0 if bp.deblock_disabled else 2,
+        assert LF.LAUNCHES == {"deblock": 0 if bp.deblock_disabled else 1,
                                "sao": int(any(LF.sao_on(bp)))}
     torch.cuda.synchronize()
 
@@ -431,7 +431,7 @@ def test_loopfilter_kernels_on_intra_planes(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", KINDS)
 def test_decode_fixture_launches_loop_filter_kernels(cuda, kind):
-    """One core a decode: two deblocking launches where the slice header
+    """One core a decode: one deblocking launch where the slice header
     leaves deblocking on, one SAO launch where it turns SAO on for luma
     or chroma."""
     h = image_slices(_container(kind))[2][0].header
@@ -440,7 +440,7 @@ def test_decode_fixture_launches_loop_filter_kernels(cuda, kind):
     HeicDecoder.decode(_container(kind), device=cuda)
     assert I.LAUNCHES == {"luma": 1, "chroma": 1}
     assert LF.LAUNCHES == {
-        "deblock": 0 if h.slice_deblocking_filter_disabled_flag else 2,
+        "deblock": 0 if h.slice_deblocking_filter_disabled_flag else 1,
         "sao": int(h.slice_sao_luma_flag or h.slice_sao_chroma_flag)}
 
 
