@@ -1,0 +1,7 @@
+"""DecodeStats.stages["dispatch"], milliseconds an image."""
+
+from portbench.metrics import stage_ms
+
+
+def read(run):
+    return stage_ms(run, "dispatch")
