@@ -119,7 +119,6 @@ def _decode(args, data: bytes, **kwargs) -> dict:
 
 
 def cmd_decode(args) -> int:
-    from heif_tpu_torch.utils.profiling import DecodeStats
     from heif_tpu_torch import HeicDecoder
     from heif_tpu_torch.utils import profiling
 
@@ -139,19 +138,18 @@ def cmd_decode(args) -> int:
               f"streams only; {args.file} is a HEIF container",
               file=sys.stderr)
         return 2
-    stats = DecodeStats()
+    stats = profiling.DecodeStats()
     options = ({"entropy": args.entropy} if raw else
                {"mesh_devices": args.mesh, "item_id": args.item,
                 "isolate_tile_errors": args.isolate_errors, "stats": stats})
     with profiling.device_trace(args.trace, profiling.DEFAULT_LOGDIR,
                                 args.device) as trace:
-        t0 = time.perf_counter()
-        planes = _decode(args, data, **options)
-        dt = time.perf_counter() - t0
+        with profiling.span("total", stats):
+            planes = _decode(args, data, **options)
+    dt = stats.stages["total"]
     y = planes["Y"]
     mp = y.size / 1e6
     stats.megapixels = mp
-    stats.stages["total"] = dt
     print(f"decoded {y.shape[1]}x{y.shape[0]} ({mp:.1f} MP) in {dt:.3f}s "
           f"[{args.backend} on {args.device}{', traced' if args.trace else ''}]",
           file=sys.stderr)

@@ -13,7 +13,6 @@ entropy runs in ops.cabac_gen.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -21,6 +20,7 @@ import numpy as np
 
 from heif_tpu_torch.container import grammar as g
 from heif_tpu_torch.container.reader import HeifReader, parse_grid_config
+from heif_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -159,11 +159,13 @@ class HeicDecoder:
           error record in stats.tile_errors / stats.errors instead of
           aborting the image.
         stats: optional heif_tpu_torch.utils.profiling.DecodeStats; receives
-          stage wall times (entropy, pack, h2d, residual, intra, deblock,
-          sao, d2h, stitch; with a mesh: entropy, sharded, stitch; with
-          backend "ref": entropy, recon, stitch) and
-          scheduler["effective_backend"]. With stats on CUDA each device
-          stage ends in a synchronize so its time is its own.
+          the host wall times of the spans (hdr, entropy, pack, h2d,
+          launch, residual, intra, deblock, sao, d2h, stitch; with a
+          mesh: hdr, entropy, sharded, stitch; with backend "ref": hdr,
+          entropy, recon, stitch), the h2d_copies counter,
+          scheduler["effective_backend"] and, on CUDA, device times
+          (stats.device) from CUDA events. Stats add no synchronize: the
+          call queues its device work as it does without them.
         mesh_devices: split the tiles over N devices
           (parallel.pipeline.decode_grid_sharded): the first N CUDA
           devices (RuntimeError if fewer exist), or N CPU shards when
@@ -192,76 +194,77 @@ class HeicDecoder:
             mesh = (make_mesh(devices=[device] * mesh_devices)
                     if device.type == "cpu" else make_mesh(mesh_devices))
 
-        reader = HeifReader(data)
-        heif = reader.read()
-        info = HeicDecoder.probe(data)
-        target = item_id if item_id is not None else info.primary_item_id
-        tgt_info = heif.item_info_by_item_id(target)
-        if tgt_info is None:
-            raise ValueError(f"item {target} not present in container")
+        with span("hdr", stats):
+            reader = HeifReader(data)
+            heif = reader.read()
+            info = HeicDecoder.probe(data)
+            target = item_id if item_id is not None else info.primary_item_id
+            tgt_info = heif.item_info_by_item_id(target)
+            if tgt_info is None:
+                raise ValueError(f"item {target} not present in container")
 
-        rec = heif.hevc_configuration_record(target)
-        if rec is None:
-            raise ValueError("no hvcC record")
-        sps = params.parse_sps(
-            remove_emulation_prevention(rec.nal_units_of_type(33)[0][2:])
-        )
-        pps = params.parse_pps(
-            remove_emulation_prevention(rec.nal_units_of_type(34)[0][2:])
-        )
-        length_size = rec.length_size_minus_one + 1
+            rec = heif.hevc_configuration_record(target)
+            if rec is None:
+                raise ValueError("no hvcC record")
+            sps = params.parse_sps(
+                remove_emulation_prevention(rec.nal_units_of_type(33)[0][2:])
+            )
+            pps = params.parse_pps(
+                remove_emulation_prevention(rec.nal_units_of_type(34)[0][2:])
+            )
+            length_size = rec.length_size_minus_one + 1
 
-        # crop + rotation come from the TARGET item's own properties
-        props = heif.meta.item_properties
-        irot_t = props.property_of_type(target, g.ImageRotationProperty)
-        angle = irot_t.angle if irot_t else 0
-        if tgt_info.item_type == g.ItemType.GRID:
-            grid = parse_grid_config(reader.get_item_data(target))
-            tile_ids = heif.item_ids_referencing(target, "dimg")
-            crop_off = (0, 0)
-        else:
-            ispe_t = props.property_of_type(
-                target, g.ImageSpatialExtentsProperty
-            )
-            # the crop origin comes from the SPS conformance window
-            # (§7.4.3.2.1); sub-sampling is 2 for 4:2:0, 1 for 4:0:0
-            sub = 2 if sps.chroma_format_idc == 1 else 1
-            crop_off = (
-                sub * sps.conf_win_left_offset,
-                sub * sps.conf_win_top_offset,
-            )
-            if ispe_t is not None:
-                out_w, out_h = ispe_t.width, ispe_t.height
+            # crop + rotation come from the TARGET item's own properties
+            props = heif.meta.item_properties
+            irot_t = props.property_of_type(target, g.ImageRotationProperty)
+            angle = irot_t.angle if irot_t else 0
+            if tgt_info.item_type == g.ItemType.GRID:
+                grid = parse_grid_config(reader.get_item_data(target))
+                tile_ids = heif.item_ids_referencing(target, "dimg")
+                crop_off = (0, 0)
             else:
-                out_w = sps.pic_width_in_luma_samples - sub * (
-                    sps.conf_win_left_offset + sps.conf_win_right_offset
+                ispe_t = props.property_of_type(
+                    target, g.ImageSpatialExtentsProperty
                 )
-                out_h = sps.pic_height_in_luma_samples - sub * (
-                    sps.conf_win_top_offset + sps.conf_win_bottom_offset
+                # the crop origin comes from the SPS conformance window
+                # (§7.4.3.2.1); sub-sampling is 2 for 4:2:0, 1 for 4:0:0
+                sub = 2 if sps.chroma_format_idc == 1 else 1
+                crop_off = (
+                    sub * sps.conf_win_left_offset,
+                    sub * sps.conf_win_top_offset,
                 )
-            grid = g.GridConfig(
-                rows=1, columns=1, output_width=out_w, output_height=out_h
-            )
-            tile_ids = [target]
+                if ispe_t is not None:
+                    out_w, out_h = ispe_t.width, ispe_t.height
+                else:
+                    out_w = sps.pic_width_in_luma_samples - sub * (
+                        sps.conf_win_left_offset + sps.conf_win_right_offset
+                    )
+                    out_h = sps.pic_height_in_luma_samples - sub * (
+                        sps.conf_win_top_offset + sps.conf_win_bottom_offset
+                    )
+                grid = g.GridConfig(
+                    rows=1, columns=1, output_width=out_w, output_height=out_h
+                )
+                tile_ids = [target]
 
-        slices = []
-        bad: dict[int, Exception] = {}
-        for ti, tid in enumerate(tile_ids):
-            try:
-                nals = sl.split_length_prefixed_nals(
-                    reader.get_item_data(tid), length_size
-                )
-                slices.append(
-                    sl.parse_slice_header(_select_vcl_nal(nals), sps, pps)
-                )
-            except Exception as e:
-                if not isolate_tile_errors:
-                    raise
-                bad[ti] = e
-                slices.append(None)
-        good = [ps for ps in slices if ps is not None]
-        if not good:
-            raise ValueError("no decodable tiles")
+            slices = []
+            bad: dict[int, Exception] = {}
+            for ti, tid in enumerate(tile_ids):
+                try:
+                    nals = sl.split_length_prefixed_nals(
+                        reader.get_item_data(tid), length_size
+                    )
+                    slices.append(
+                        sl.parse_slice_header(_select_vcl_nal(nals), sps, pps)
+                    )
+                except Exception as e:
+                    if not isolate_tile_errors:
+                        raise
+                    bad[ti] = e
+                    slices.append(None)
+            good = [ps for ps in slices if ps is not None]
+            if not good:
+                raise ValueError("no decodable tiles")
 
         hints = schedule_hints(rec, sps, pps, len(tile_ids))
         if stats is not None:
@@ -286,18 +289,13 @@ class HeicDecoder:
                 )
 
         def entropy(parsed):
-            t0 = time.perf_counter()
-            if native.available():
-                out = native.decode_tiles_parallel(
-                    sps, pps, parsed, max_workers=hints.get("entropy_workers")
-                )
-            else:
-                out = [TileSyntaxDecoder(sps, pps, ps).decode() for ps in parsed]
-            if stats is not None:
-                stats.stages["entropy"] = stats.stages.get("entropy", 0.0) + (
-                    time.perf_counter() - t0
-                )
-            return out
+            with span("entropy", stats):
+                if native.available():
+                    return native.decode_tiles_parallel(
+                        sps, pps, parsed,
+                        max_workers=hints.get("entropy_workers"))
+                return [TileSyntaxDecoder(sps, pps, ps).decode()
+                        for ps in parsed]
 
         if isolate_tile_errors:
             syntaxes_good = []
@@ -319,58 +317,50 @@ class HeicDecoder:
         if backend == "ref":
             from heif_tpu_torch.ops.ref_recon import reconstruct_tile
 
-            t0 = time.perf_counter()
-            tiles_good = [reconstruct_tile(st, sps, pps, ps.header)
-                          for st, ps in zip(syntaxes_good, slices_good)]
-            if stats is not None:
-                stats.stages["recon"] = time.perf_counter() - t0
+            with span("recon", stats):
+                tiles_good = [reconstruct_tile(st, sps, pps, ps.header)
+                              for st, ps in zip(syntaxes_good, slices_good)]
         elif mesh is None:
             tiles_good = reconstruct_tiles(
                 syntaxes_good, sps, pps, slices_good, device=device,
                 stats=stats,
             )
         else:
-            t0 = time.perf_counter()
-            planes3 = decode_grid_sharded(
-                syntaxes_good, sps, pps, slices_good, mesh=mesh
-            )
+            with span("sharded", stats):
+                planes3 = decode_grid_sharded(
+                    syntaxes_good, sps, pps, slices_good, mesh=mesh
+                )
             tiles_good = [[p[i] for p in planes3]
                           for i in range(len(syntaxes_good))]
-            if stats is not None:
-                stats.stages["sharded"] = time.perf_counter() - t0
 
-        t0 = time.perf_counter()
-        if bad:
-            th = sps.pic_height_in_luma_samples
-            tw = sps.pic_width_in_luma_samples
-            bd = max(sps.bit_depth_y, sps.bit_depth_c)
-            gdt = np.uint8 if bd <= 8 else np.uint16
-            mid = 1 << (bd - 1)
-            gray = [
-                np.full((th, tw), mid, gdt),
-                np.full((th >> 1, tw >> 1), mid, gdt),
-                np.full((th >> 1, tw >> 1), mid, gdt),
-            ]
-            it = iter(tiles_good)
-            tiles = [gray if ti in bad else next(it) for ti in range(len(tile_ids))]
-            if stats is not None:
+        with span("stitch", stats):
+            if bad:
+                th = sps.pic_height_in_luma_samples
+                tw = sps.pic_width_in_luma_samples
+                bd = max(sps.bit_depth_y, sps.bit_depth_c)
+                gdt = np.uint8 if bd <= 8 else np.uint16
+                mid = 1 << (bd - 1)
+                gray = [
+                    np.full((th, tw), mid, gdt),
+                    np.full((th >> 1, tw >> 1), mid, gdt),
+                    np.full((th >> 1, tw >> 1), mid, gdt),
+                ]
+                it = iter(tiles_good)
+                tiles = [gray if ti in bad else next(it)
+                         for ti in range(len(tile_ids))]
+            else:
+                tiles = tiles_good
+            planes = HeicDecoder._stitch(
+                tiles, grid, sps, apply_rotation, angle, crop_off=crop_off
+            )
+        planes["info"] = info
+        if stats is not None:
+            if bad:
                 stats.tile_errors = len(bad)
                 stats.errors = {
                     ti: f"{type(e).__name__}: {e}" for ti, e in bad.items()
                 }
-        else:
-            tiles = tiles_good
-        if stats is not None:
             stats.tiles = len(tile_ids)
-
-        planes = HeicDecoder._stitch(
-            tiles, grid, sps, apply_rotation, angle, crop_off=crop_off
-        )
-        planes["info"] = info
-        if stats is not None:
-            stats.stages["stitch"] = stats.stages.get("stitch", 0.0) + (
-                time.perf_counter() - t0
-            )
             stats.megapixels = grid.output_width * grid.output_height / 1e6
         return planes
 

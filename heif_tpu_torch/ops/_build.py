@@ -1,8 +1,9 @@
 """Build and bind the CUDA sources in heif_tpu_torch/csrc/.
 
 nvcc compiles each csrc/*.cu to an object for sm_90a (Hopper), one nvcc
-process per source, all started together, then links them into one
-shared library with a plain C interface, at first use:
+process per source, all started together, each in a session of its own,
+then links them into one shared library with a plain C interface, at
+first use:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -c -o <src>.o <src>.cu          (each source)
@@ -14,15 +15,19 @@ flags, so an edited source rebuilds and an unchanged one loads the
 existing library. The library is loaded with ctypes; pointers and the
 CUDA stream are passed as void*, and each launcher returns
 cudaGetLastError(). A failed build raises with nvcc's stderr: there is
-no fallback.
+no fallback. When one compile fails, the others are killed with their
+whole process group (nvcc's cicc, ptxas and host compiler included), so
+a failed build leaves no process behind.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import tempfile
 import threading
@@ -116,7 +121,7 @@ def build() -> Path:
                 cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
                 procs.append((cmd, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                    text=True)))
+                    text=True, start_new_session=True)))
                 objs.append(obj)
             for cmd, proc in procs:
                 _, err = proc.communicate()
@@ -126,8 +131,10 @@ def build() -> Path:
         finally:
             for _, proc in procs:
                 if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+                    # nvcc leads its own group: kill its children with it
+                    with contextlib.suppress(ProcessLookupError):
+                        os.killpg(proc.pid, signal.SIGKILL)
+                    proc.communicate()
         so = os.path.join(tmpdir, out.name)
         cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)

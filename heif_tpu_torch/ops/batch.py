@@ -28,9 +28,7 @@ sticky shape caps are not needed, and chunks hold only real tiles.
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,6 +40,7 @@ from heif_tpu_torch.ops import loopfilter as LF
 from heif_tpu_torch.ops import recon as R
 from heif_tpu_torch.ops import refsrc as RF
 from heif_tpu_torch.ops import residual as RS
+from heif_tpu_torch.utils.profiling import device_seconds, span
 
 PAD = R.PAD
 
@@ -483,57 +482,46 @@ def schedule_hints(rec, sps, pps, n_tiles: int) -> dict:
 # --------------------------------------------------------------------------
 
 
-@contextmanager
-def _stage(stats, name: str, device: torch.device):
-    """Attribute wall time to stats.stages[name]. On CUDA the stage ends
-    in a synchronize (only when stats are kept), so device work is
-    charged to the stage that queued it."""
-    if stats is None:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        stats.stages[name] = stats.stages.get(name, 0.0) + (
-            time.perf_counter() - t0
-        )
-
-
-def plan_to_device(bp: BatchPlan, device: torch.device) -> dict:
+def plan_to_device(bp: BatchPlan, device: torch.device, stats=None,
+                   events=None) -> dict:
     """Ship the BatchPlan arrays to `device`. On CUDA each array goes
     through pinned host memory as a non_blocking copy on the current
     stream (the core's kernels queue behind it on the same stream). On
     CUDA the intra kernels' schedules ("schedules", unit_tables) are
     built there from the shipped worklists; the plain walks on the CPU
-    need none ([None, None])."""
+    need none ([None, None]). The span h2d covers it all; stats also
+    counts h2d_copies, one an array shipped (on the CPU the array is
+    wrapped, not copied); events: see utils.profiling.span."""
     def put(a):
+        if stats is not None:
+            n = stats.counters.get("h2d_copies", 0)
+            stats.counters["h2d_copies"] = n + 1
         t = torch.from_numpy(np.ascontiguousarray(a))
         if device.type == "cuda":
             return t.pin_memory().to(device, non_blocking=True)
         return t
 
     used = {(size, comp) for comp, size in bp.tc_coeffs}
-    d = {
-        "classes": [
-            (*k, put(bp.tc_coeffs[k]), put(bp.tc_qp[k]), put(bp.tc_dst[k]),
-             put(bp.tc_skip[k]), put(bp.tc_bypass[k]), put(bp.tc_org[k]))
-            for k in bp.tc_coeffs
-        ],
-        "scaling": {k: put(bp.scaling[k]) for k in used},
-        "steps": [put(np.stack(bp.xs[c], axis=-1)) for c in range(3)],
-        "counts": [put(bp.counts[c]) for c in range(3)],
-        "pcm": [None if p is None else put(p) for p in bp.pcm],
-        "qp_map": put(bp.qp_map),
-        "nf_map": put(bp.nf_map),
-        "vert_edges": put(bp.vert_edges),
-        "horiz_edges": put(bp.horiz_edges),
-        "sao": put(bp.sao),
-    }
-    d["schedules"] = (unit_tables(d, bp) if device.type == "cuda"
-                      else [None, None])
+    with span("h2d", stats, events):
+        d = {
+            "classes": [
+                (*k, put(bp.tc_coeffs[k]), put(bp.tc_qp[k]),
+                 put(bp.tc_dst[k]), put(bp.tc_skip[k]), put(bp.tc_bypass[k]),
+                 put(bp.tc_org[k]))
+                for k in bp.tc_coeffs
+            ],
+            "scaling": {k: put(bp.scaling[k]) for k in used},
+            "steps": [put(np.stack(bp.xs[c], axis=-1)) for c in range(3)],
+            "counts": [put(bp.counts[c]) for c in range(3)],
+            "pcm": [None if p is None else put(p) for p in bp.pcm],
+            "qp_map": put(bp.qp_map),
+            "nf_map": put(bp.nf_map),
+            "vert_edges": put(bp.vert_edges),
+            "horiz_edges": put(bp.horiz_edges),
+            "sao": put(bp.sao),
+        }
+        d["schedules"] = (unit_tables(d, bp) if device.type == "cuda"
+                          else [None, None])
     return d
 
 
@@ -570,22 +558,25 @@ def source_tables(d: dict, bp: BatchPlan) -> list:
     )
 
 
-def core(d: dict, bp: BatchPlan, device: torch.device, stats=None) -> list:
+def core(d: dict, bp: BatchPlan, device: torch.device, stats=None,
+         events=None) -> list:
     """The batched reconstruction (port of heif_tpu.ops.batch._core).
 
     d: plan_to_device(bp, device). Returns [Y, Cb, Cr] as [N, h, w] int32
-    device tensors.
+    device tensors, queued with no synchronize. Its four stages are the
+    spans residual, intra, deblock and sao (stats, events: see
+    utils.profiling.span).
     """
     H, W = bp.height, bp.width
     Hc, Wc = H // 2, W // 2
     bd_y, bd_c = bp.bit_depth_y, bp.bit_depth_c
 
     # ---- stage 1: residuals (one launch on CUDA) ----
-    with _stage(stats, "residual", device):
+    with span("residual", stats, events):
         res = RS.residual_planes(d, bp)
 
     # ---- stage 2: source tables (one launch on CUDA), intra walks ----
-    with _stage(stats, "intra", device):
+    with span("intra", stats, events):
         steps, counts, pcm, sch = (d["steps"], d["counts"], d["pcm"],
                                    d["schedules"])
         srcs = source_tables(d, bp)
@@ -601,12 +592,12 @@ def core(d: dict, bp: BatchPlan, device: torch.device, stats=None) -> list:
 
     # ---- stage 3: deblocking (one launch on CUDA) ----
     if not bp.deblock_disabled:
-        with _stage(stats, "deblock", device):
+        with span("deblock", stats, events):
             planes = LF.deblock(planes, d, bp)
 
     # ---- stage 4: SAO (one launch on CUDA) ----
     if bp.sao_luma or bp.sao_chroma:
-        with _stage(stats, "sao", device):
+        with span("sao", stats, events):
             planes = LF.sao(planes, d, bp)
     return planes
 
@@ -623,21 +614,23 @@ def host_view(t: torch.Tensor) -> np.ndarray:
     return a.view(np.uint16) if a.dtype == np.int16 else a
 
 
-def planes_to_host(planes, bd_y: int, bd_c: int, device, stats=None) -> list:
-    """[N, h, w] int32 device planes -> uint8 numpy (uint16 above 8 bits)."""
-    dt = out_dtype(bd_y, bd_c)
-    with _stage(stats, "d2h", device):
-        return [host_view(p.to(dt).cpu()) for p in planes]
-
-
 def reconstruct_batch(bp: BatchPlan, device="cuda", stats=None) -> list:
     """Reconstruct a packed batch on `device`; returns [Y, Cb, Cr] numpy
-    [N, h, w] planes (uint8, or uint16 above 8 bits)."""
+    [N, h, w] planes (uint8, or uint16 above 8 bits). The spans h2d,
+    launch and d2h; with stats on CUDA, also the device seconds of h2d,
+    core's four stages and d2h (stats.device), from CUDA event pairs read
+    once the D2H copy, which synchronizes, is done."""
     device = resolve_device(device)
-    with _stage(stats, "h2d", device):
-        d = plan_to_device(bp, device)
-    planes = core(d, bp, device, stats)
-    return planes_to_host(planes, bp.bit_depth_y, bp.bit_depth_c, device, stats)
+    events = [] if stats is not None and device.type == "cuda" else None
+    d = plan_to_device(bp, device, stats, events)
+    dt = out_dtype(bp.bit_depth_y, bp.bit_depth_c)
+    with span("launch", stats):
+        planes = [p.to(dt) for p in core(d, bp, device, stats, events)]
+    with span("d2h", stats, events):
+        out = [host_view(p.cpu()) for p in planes]
+    if events is not None:
+        device_seconds(stats, events)
+    return out
 
 
 def reconstruct_tiles(syntaxes, sps, pps, slices, device="cuda",
@@ -645,12 +638,8 @@ def reconstruct_tiles(syntaxes, sps, pps, slices, device="cuda",
     """Decode-backend entry: all tiles in one batch. Returns a per-tile
     list of [Y, Cb, Cr] numpy planes."""
     device = resolve_device(device)
-    t0 = time.perf_counter()
-    bp = pack_batch(syntaxes, sps, pps, slices)
-    if stats is not None:
-        stats.stages["pack"] = stats.stages.get("pack", 0.0) + (
-            time.perf_counter() - t0
-        )
+    with span("pack", stats):
+        bp = pack_batch(syntaxes, sps, pps, slices)
     planes = reconstruct_batch(bp, device, stats)
     return [[planes[0][i], planes[1][i], planes[2][i]] for i in range(bp.n)]
 
@@ -660,15 +649,17 @@ def reconstruct_tiles(syntaxes, sps, pps, slices, device="cuda",
 # --------------------------------------------------------------------------
 
 
-def device_planes(bp: BatchPlan, device: torch.device) -> list:
+def device_planes(bp: BatchPlan, device: torch.device, stats=None) -> list:
     """H2D + core for one packed chunk, queued on the current stream with
     no synchronize: [Y, Cb, Cr] contiguous [N, h, w] device planes in
-    out_dtype."""
+    out_dtype. stats: the spans h2d and launch and the h2d_copies
+    counter; core's own stages are left to the trace."""
     device = resolve_device(device)
-    planes = core(plan_to_device(bp, device), bp, device)
+    d = plan_to_device(bp, device, stats)
     dt = out_dtype(bp.bit_depth_y, bp.bit_depth_c)
-    return [p.to(dtype=dt, memory_format=torch.contiguous_format)
-            for p in planes]
+    with span("launch", stats):
+        return [p.to(dtype=dt, memory_format=torch.contiguous_format)
+                for p in core(d, bp, device)]
 
 
 class Readback:
@@ -738,7 +729,8 @@ def reconstruct_pipelined(syntaxes, sps, pps, slices, chunk: int = 12,
         bp = pack_batch(syntaxes[lo : lo + chunk], sps, pps,
                         slices[lo : lo + chunk])
         rb.submit(device_planes(bp, device))
-    return stack_chunks(rb.drain())
+    with span("readback"):
+        return stack_chunks(rb.drain())
 
 
 def default_entropy(sps, pps, hints: dict):
@@ -757,40 +749,24 @@ def default_entropy(sps, pps, hints: dict):
     return lambda ps: [TileSyntaxDecoder(sps, pps, p).decode() for p in ps]
 
 
-def _mark(stats, name: str, t0: float) -> None:
-    if stats is not None:
-        stats.stages[name] = stats.stages.get(name, 0.0) + (
-            time.perf_counter() - t0
-        )
-
-
-def _timed_entropy(entropy_fn, stats):
-    if stats is None:
-        return entropy_fn
-
-    def timed(ps):
-        t0 = time.perf_counter()
-        out = entropy_fn(ps)
-        _mark(stats, "entropy", t0)
-        return out
-
-    return timed
-
-
 def run_chunks(chunks, entropy_fn, step, stats=None) -> None:
     """The overlapped loop. A one-thread executor runs entropy_fn over
     every chunk of slices in order (native entropy releases the GIL and
     fans out to its own pool; that thread never touches torch). This
     thread waits for each chunk's syntax and calls step(i, syntaxes,
     slices), which packs and queues device work without synchronizing.
-    stats: entropy_wait (this thread blocked on entropy)."""
+    stats: the spans entropy (the worker's wall) and entropy_wait (this
+    thread blocked on entropy)."""
+    def entropy(c):
+        with span("entropy", stats):
+            return entropy_fn(c)
+
     ex = ThreadPoolExecutor(max_workers=1)
     try:
-        futs = [ex.submit(entropy_fn, c) for c in chunks]
+        futs = [ex.submit(entropy, c) for c in chunks]
         for i, (sl_chunk, fut) in enumerate(zip(chunks, futs)):
-            t0 = time.perf_counter()
-            syn = list(fut.result())
-            _mark(stats, "entropy_wait", t0)
+            with span("entropy_wait", stats):
+                syn = list(fut.result())
             step(i, syn, list(sl_chunk))
     finally:
         ex.shutdown(wait=True, cancel_futures=True)
@@ -799,20 +775,16 @@ def run_chunks(chunks, entropy_fn, step, stats=None) -> None:
 def _run_one_device(sps, pps, chunks, entropy_fn, device, stats, sink):
     """run_chunks on one device: each chunk is packed, H2D + core are
     queued on the current stream and the device planes go to sink(i,
-    planes). core runs without stats (its per-stage synchronize would
-    serialise the pipeline), so stats time host work only: entropy
-    (worker wall), entropy_wait, pack, dispatch (H2D + launches +
-    sink)."""
+    planes). stats time host work only: entropy (worker wall),
+    entropy_wait, pack, dispatch (h2d + launch + sink), h2d, launch."""
 
     def step(i, syn, sl):
-        t0 = time.perf_counter()
-        bp = pack_batch(syn, sps, pps, sl)
-        _mark(stats, "pack", t0)
-        t0 = time.perf_counter()
-        sink(i, device_planes(bp, device))
-        _mark(stats, "dispatch", t0)
+        with span("pack", stats):
+            bp = pack_batch(syn, sps, pps, sl)
+        with span("dispatch", stats):
+            sink(i, device_planes(bp, device, stats))
 
-    run_chunks(chunks, _timed_entropy(entropy_fn, stats), step, stats)
+    run_chunks(chunks, entropy_fn, step, stats)
 
 
 def decode_reconstruct_overlapped(
@@ -834,10 +806,10 @@ def decode_reconstruct_overlapped(
     above 8 bits), without waiting for the device. Chunks hold only
     real tiles: the last one may be shorter.
 
-    stats: optional DecodeStats; records the scheduler hints and host
-    stage times entropy, entropy_wait, pack, dispatch and, with
-    readback, readback (the drain). Overlapped stages sum to more than
-    the wall by design.
+    stats: optional DecodeStats; records the scheduler hints, the
+    h2d_copies counter and host stage times entropy, entropy_wait, pack,
+    dispatch, h2d, launch and, with readback, readback (the drain).
+    Overlapped stages sum to more than the wall by design.
     """
     device = resolve_device(device)
     if hints is None:
@@ -859,10 +831,8 @@ def decode_reconstruct_overlapped(
     rb = Readback()
     _run_one_device(sps, pps, chunks, entropy_fn, device, stats,
                     lambda i, planes: rb.submit(planes))
-    t0 = time.perf_counter()
-    out = stack_chunks(rb.drain())
-    _mark(stats, "readback", t0)
-    return out
+    with span("readback", stats):
+        return stack_chunks(rb.drain())
 
 
 def decode_burst(sps, pps, image_slice_lists, chunk: int | None = None,

@@ -42,28 +42,31 @@ class ParsedImage:
 
 
 def parse_image(data: bytes) -> ParsedImage:
-    """Container, hvcC record and parameter sets of the primary item."""
+    """Container, hvcC record and parameter sets of the primary item (in
+    the span hdr)."""
     from heif_tpu_torch.container import grammar as g
     from heif_tpu_torch.container.reader import HeifReader, parse_grid_config
     from heif_tpu_torch.hevc import params
     from heif_tpu_torch.hevc.rbsp import remove_emulation_prevention
+    from heif_tpu_torch.utils.profiling import span
 
-    reader = HeifReader(data)
-    heif = reader.read()
-    primary = heif.primary_item_id()
-    info = heif.item_info_by_item_id(primary)
-    grid = None
-    tile_ids = [primary]
-    if info is not None and info.item_type == g.ItemType.GRID:
-        grid = parse_grid_config(reader.get_item_data(primary))
-        tile_ids = heif.item_ids_referencing(primary, "dimg")
-    rec = heif.hevc_configuration_record(tile_ids[0])
-    if rec is None:
-        raise ValueError(f"item {tile_ids[0]} has no hvcC record")
-    sps = params.parse_sps(
-        remove_emulation_prevention(rec.nal_units_of_type(33)[0][2:]))
-    pps = params.parse_pps(
-        remove_emulation_prevention(rec.nal_units_of_type(34)[0][2:]))
+    with span("hdr"):
+        reader = HeifReader(data)
+        heif = reader.read()
+        primary = heif.primary_item_id()
+        info = heif.item_info_by_item_id(primary)
+        grid = None
+        tile_ids = [primary]
+        if info is not None and info.item_type == g.ItemType.GRID:
+            grid = parse_grid_config(reader.get_item_data(primary))
+            tile_ids = heif.item_ids_referencing(primary, "dimg")
+        rec = heif.hevc_configuration_record(tile_ids[0])
+        if rec is None:
+            raise ValueError(f"item {tile_ids[0]} has no hvcC record")
+        sps = params.parse_sps(
+            remove_emulation_prevention(rec.nal_units_of_type(33)[0][2:]))
+        pps = params.parse_pps(
+            remove_emulation_prevention(rec.nal_units_of_type(34)[0][2:]))
     return ParsedImage(reader, heif, primary, sps, pps, grid, tile_ids,
                        rec.length_size_minus_one + 1)
 
@@ -72,15 +75,19 @@ def item_slices(img: ParsedImage) -> list:
     """The parsed slice header of each item of img.tile_ids, in order. NAL
     units are split with the hvcC record's length size and each item's one
     VCL NAL is picked by models.decoder._select_vcl_nal, as
-    HeicDecoder.decode does."""
+    HeicDecoder.decode does (in the span hdr)."""
     from heif_tpu_torch.hevc import slice as sl
     from heif_tpu_torch.models.decoder import _select_vcl_nal
+    from heif_tpu_torch.utils.profiling import span
 
-    return [
-        sl.parse_slice_header(_select_vcl_nal(sl.split_length_prefixed_nals(
-            img.reader.get_item_data(t), img.length_size)), img.sps, img.pps)
-        for t in img.tile_ids
-    ]
+    with span("hdr"):
+        return [
+            sl.parse_slice_header(_select_vcl_nal(
+                sl.split_length_prefixed_nals(img.reader.get_item_data(t),
+                                              img.length_size)),
+                img.sps, img.pps)
+            for t in img.tile_ids
+        ]
 
 
 def image_slices(data: bytes):

@@ -113,16 +113,16 @@ def decode_once(data: bytes, dev):
     """One e2e decode: ((y, cb, cr) stitched numpy planes, DecodeStats
     with tiles and megapixels set). cb and cr are None for 4:0:0."""
     from heif_tpu_torch.ops.batch import decode_reconstruct_overlapped
-    from heif_tpu_torch.utils.profiling import DecodeStats
+    from heif_tpu_torch.utils.profiling import DecodeStats, span
 
     stats = DecodeStats()
     img, grid, (ox, oy) = parse(data)
-    with stats.stage("hdr"):
+    with span("hdr", stats):
         slices = item_slices(img)
-    with stats.stage("recon"):
+    with span("recon", stats):
         planes = decode_reconstruct_overlapped(
             img.sps, img.pps, slices, readback=True, stats=stats, device=dev)
-    with stats.stage("stitch"):
+    with span("stitch", stats):
         th = img.sps.pic_height_in_luma_samples
         tw = img.sps.pic_width_in_luma_samples
         rows, cols = grid.rows, grid.columns

@@ -1,0 +1,8 @@
+"""DecodeStats.stages["hdr"], milliseconds an image (the program's span
+heif.hdr; absent from a program without it)."""
+
+from portbench.metrics import stage_ms
+
+
+def read(run):
+    return stage_ms(run, "hdr")

@@ -31,7 +31,7 @@ from heif_tpu.hevc.rbsp import remove_emulation_prevention
 from heif_tpu.models.decoder import HeicDecoder as RefDecoder
 from heif_tpu.ops import batch as JB
 from heif_tpu.utils.heif_mux import mux_heic
-from heif_tpu.utils.profiling import DecodeStats
+from heif_tpu_torch.utils.profiling import DecodeStats
 from heif_tpu_torch import HeicDecoder
 from heif_tpu_torch.ops import batch as TB
 from heif_tpu_torch.utils.synthetic import synthetic_batch

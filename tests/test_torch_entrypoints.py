@@ -22,7 +22,7 @@ import pytest
 
 from heif_tpu.models.decoder import HeicDecoder as RefDecoder
 from heif_tpu.utils.heif_mux import mux_heic
-from heif_tpu.utils.profiling import DecodeStats
+from heif_tpu_torch.utils.profiling import DecodeStats
 from heif_tpu_torch import HeicDecoder
 from heif_tpu_torch import cli
 from heif_tpu_torch.hevc import params
@@ -216,13 +216,20 @@ def test_cli_decode_trace(grid_file, tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(profiling, "DEFAULT_LOGDIR", str(tmp_path / "tr"))
     dst = tmp_path / "x.npz"
     assert cli.main(["decode", str(grid_file), "--device", "cpu", "--trace",
-                     "-o", str(dst)]) == 0
+                     "--stats", "-o", str(dst)]) == 0
     files = glob.glob(str(tmp_path / "tr" / "*.pt.trace.json"))
     assert len(files) == 1
     err = capsys.readouterr().err
     assert f"trace: {files[0]}" in err and "traced" in err
     with open(files[0]) as f:
-        assert json.load(f)["traceEvents"]
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"heif.total", "heif.hdr", "heif.launch", "heif.stitch"} <= names
+    line = json.loads(next(ln for ln in err.splitlines()
+                           if ln.startswith("{")))
+    assert {"total", "hdr", "entropy", "launch", "stitch"} <= set(
+        line["stages_ms"])
+    assert line["total_ms"] == line["stages_ms"]["total"]
+    assert line["counters"]["h2d_copies"] > 0
     want = HeicDecoder.decode(grid_file.read_bytes(), device="cpu")
     got = np.load(dst)
     for k in ("Y", "Cb", "Cr"):

@@ -27,7 +27,7 @@ from heif_tpu.cabac.syntax import TileSyntaxDecoder
 from heif_tpu.models.decoder import HeicDecoder as RefDecoder
 from heif_tpu.utils import hevc_synth
 from heif_tpu.utils.heif_mux import mux_heic
-from heif_tpu.utils.profiling import DecodeStats
+from heif_tpu_torch.utils.profiling import DecodeStats
 from heif_tpu_torch import HeicDecoder
 from heif_tpu_torch.ops import batch as TB
 from heif_tpu_torch.parallel import distributed as D
