@@ -162,7 +162,7 @@ class HeicDecoder:
           the host wall times of the spans (hdr, entropy, pack, h2d,
           launch, residual, intra, deblock, sao, d2h, stitch; with a
           mesh: hdr, entropy, sharded, stitch; with backend "ref": hdr,
-          entropy, recon, stitch), the h2d_copies counter,
+          entropy, recon, stitch), the h2d_copies and h2d_bytes counters,
           scheduler["effective_backend"] and, on CUDA, device times
           (stats.device) from CUDA events. Stats add no synchronize: the
           call queues its device work as it does without them.

@@ -482,43 +482,83 @@ def schedule_hints(rec, sps, pps, n_tiles: int) -> dict:
 # --------------------------------------------------------------------------
 
 
+# byte alignment of each array in a plan's buffer: every view starts
+# aligned for its dtype and for the kernels' vector loads
+ALIGN = 256
+_TORCH_DTYPE = {np.dtype(np.bool_): torch.bool,
+                np.dtype(np.int16): torch.int16,
+                np.dtype(np.int32): torch.int32}
+
+
+def _ship(arrays: list, device: torch.device, stats=None) -> list:
+    """`arrays` as views of one buffer on `device`: each array is written
+    once into one host buffer (pinned on CUDA, from torch's caching host
+    allocator, which reuses a block only once its copy is done) at an
+    ALIGN-rounded offset, and the buffer goes over in one non_blocking
+    copy on the current stream; on the CPU the views are of the host
+    buffer itself. An entry that is a tuple of equal-shape arrays ships
+    as their stack on a new last axis. stats counts h2d_copies (one) and
+    h2d_bytes (the buffer, padding included)."""
+    slots, total = [], 0
+    for a in arrays:
+        one = a[0] if isinstance(a, tuple) else a
+        shape = one.shape + ((len(a),) if isinstance(a, tuple) else ())
+        nbytes = one.dtype.itemsize * int(np.prod(shape))
+        slots.append((total, nbytes, shape, one.dtype))
+        total += -(-nbytes // ALIGN) * ALIGN
+    host = torch.empty(total, dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    raw = host.numpy()
+    for a, (off, nbytes, shape, dt) in zip(arrays, slots):
+        dst = raw[off:off + nbytes].view(dt).reshape(shape)
+        if isinstance(a, tuple):
+            for f, x in enumerate(a):
+                dst[..., f] = x
+        else:
+            dst[...] = a
+    buf = (host.to(device, non_blocking=True) if device.type == "cuda"
+           else host)
+    if stats is not None:
+        c = stats.counters
+        c["h2d_copies"] = c.get("h2d_copies", 0) + 1
+        c["h2d_bytes"] = c.get("h2d_bytes", 0) + total
+    typed = {dt: buf.view(_TORCH_DTYPE[dt]) for dt in {s[3] for s in slots}}
+    return [typed[dt][off // dt.itemsize:(off + nbytes) // dt.itemsize]
+            .view(shape) for off, nbytes, shape, dt in slots]
+
+
 def plan_to_device(bp: BatchPlan, device: torch.device, stats=None,
                    events=None) -> dict:
-    """Ship the BatchPlan arrays to `device`. On CUDA each array goes
-    through pinned host memory as a non_blocking copy on the current
-    stream (the core's kernels queue behind it on the same stream). On
-    CUDA the intra kernels' schedules ("schedules", unit_tables) are
-    built there from the shipped worklists; the plain walks on the CPU
-    need none ([None, None]). The span h2d covers it all; stats also
-    counts h2d_copies, one an array shipped (on the CPU the array is
-    wrapped, not copied); events: see utils.profiling.span."""
-    def put(a):
-        if stats is not None:
-            n = stats.counters.get("h2d_copies", 0)
-            stats.counters["h2d_copies"] = n + 1
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t
-
-    used = {(size, comp) for comp, size in bp.tc_coeffs}
+    """Ship the BatchPlan arrays to `device` as views of one buffer in
+    one copy (_ship); the steps of component c are its six scan fields
+    bp.xs[c] stacked on the last axis, [N, S, 6]. The core's kernels
+    queue behind the copy on the same stream. On CUDA the intra kernels'
+    schedules ("schedules", unit_tables) are built there from the
+    shipped worklists; the plain walks on the CPU need none ([None,
+    None]). The span h2d covers it all; stats also counts h2d_copies,
+    one a plan, and h2d_bytes; events: see utils.profiling.span."""
+    used = sorted({(size, comp) for comp, size in bp.tc_coeffs})
     with span("h2d", stats, events):
+        arrays = [a for k in bp.tc_coeffs
+                  for a in (bp.tc_coeffs[k], bp.tc_qp[k], bp.tc_dst[k],
+                            bp.tc_skip[k], bp.tc_bypass[k], bp.tc_org[k])]
+        arrays += [bp.scaling[k] for k in used]
+        arrays += [*bp.xs, *bp.counts, *(p for p in bp.pcm if p is not None),
+                   bp.qp_map, bp.nf_map, bp.vert_edges, bp.horiz_edges,
+                   bp.sao]
+        ts = iter(_ship(arrays, device, stats))  # in the order of arrays
         d = {
-            "classes": [
-                (*k, put(bp.tc_coeffs[k]), put(bp.tc_qp[k]),
-                 put(bp.tc_dst[k]), put(bp.tc_skip[k]), put(bp.tc_bypass[k]),
-                 put(bp.tc_org[k]))
-                for k in bp.tc_coeffs
-            ],
-            "scaling": {k: put(bp.scaling[k]) for k in used},
-            "steps": [put(np.stack(bp.xs[c], axis=-1)) for c in range(3)],
-            "counts": [put(bp.counts[c]) for c in range(3)],
-            "pcm": [None if p is None else put(p) for p in bp.pcm],
-            "qp_map": put(bp.qp_map),
-            "nf_map": put(bp.nf_map),
-            "vert_edges": put(bp.vert_edges),
-            "horiz_edges": put(bp.horiz_edges),
-            "sao": put(bp.sao),
+            "classes": [(*k, *(next(ts) for _ in range(6)))
+                        for k in bp.tc_coeffs],
+            "scaling": {k: next(ts) for k in used},
+            "steps": [next(ts) for _ in range(3)],
+            "counts": [next(ts) for _ in range(3)],
+            "pcm": [None if p is None else next(ts) for p in bp.pcm],
+            "qp_map": next(ts),
+            "nf_map": next(ts),
+            "vert_edges": next(ts),
+            "horiz_edges": next(ts),
+            "sao": next(ts),
         }
         d["schedules"] = (unit_tables(d, bp) if device.type == "cuda"
                           else [None, None])
@@ -652,8 +692,8 @@ def reconstruct_tiles(syntaxes, sps, pps, slices, device="cuda",
 def device_planes(bp: BatchPlan, device: torch.device, stats=None) -> list:
     """H2D + core for one packed chunk, queued on the current stream with
     no synchronize: [Y, Cb, Cr] contiguous [N, h, w] device planes in
-    out_dtype. stats: the spans h2d and launch and the h2d_copies
-    counter; core's own stages are left to the trace."""
+    out_dtype. stats: the spans h2d and launch and the h2d_copies and
+    h2d_bytes counters; core's own stages are left to the trace."""
     device = resolve_device(device)
     d = plan_to_device(bp, device, stats)
     dt = out_dtype(bp.bit_depth_y, bp.bit_depth_c)
@@ -807,8 +847,9 @@ def decode_reconstruct_overlapped(
     real tiles: the last one may be shorter.
 
     stats: optional DecodeStats; records the scheduler hints, the
-    h2d_copies counter and host stage times entropy, entropy_wait, pack,
-    dispatch, h2d, launch and, with readback, readback (the drain).
+    h2d_copies and h2d_bytes counters and host stage times entropy,
+    entropy_wait, pack, dispatch, h2d, launch and, with readback,
+    readback (the drain).
     Overlapped stages sum to more than the wall by design.
     """
     device = resolve_device(device)

@@ -16,7 +16,8 @@ neither it costs one check of a flag. The spans, outermost first:
   entropy_wait  the bulk paths' main thread blocked on a chunk's entropy
   pack          ops.batch.pack_batch
   dispatch      a bulk chunk's h2d + launch + hand-off
-  h2d           ops.batch.plan_to_device: pin and enqueue, no synchronize
+  h2d           ops.batch.plan_to_device: fill a plan's one pinned buffer
+                and enqueue its copy, no synchronize
   launch        ops.batch.core plus the casts to the output dtype
   residual, intra, deblock, sao   core's four stages, inside launch
   d2h           the one-batch path's copy of the planes to the host
@@ -70,7 +71,8 @@ class DecodeStats:
       stream (h2d, residual, intra, deblock, sao, d2h), recorded only by
       the one-batch path (ops.batch.reconstruct_batch) on CUDA.
     counters: h2d_copies, the host-to-device copies of the plans shipped
-      (ops.batch.plan_to_device: one a plan array).
+      (ops.batch.plan_to_device: one a plan), and h2d_bytes, the bytes
+      those copies ship, padding included.
     """
 
     stages: dict = field(default_factory=dict)

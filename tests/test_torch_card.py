@@ -51,6 +51,9 @@ On a card (`cuda`-marked; each skips without one):
   plan with HEVC tiles; core on CUDA launches the residual kernel once
   and the source tables once and runs no plain stage-1 op; every fixture
   kind's decode launches them so;
+- two plans queued back to back through ops.batch.device_planes with no
+  synchronize, behind a busy stream: each one's planes equal the CPU
+  core's on its plan (no host buffer rewritten while its copy waits);
 - the edge kinds (`edge72`, `edge1080_main10`, `edge40x200_wpp`: committed
   x265 streams with a side of 8 (mod 16), so a partial last chroma
   deblocking edge) through decode and decode_hevc, equal to backend="ref";
@@ -553,6 +556,26 @@ def test_core_runs_the_stage1_kernels_and_no_plain_op(cuda, monkeypatch):
     assert RF.LAUNCHES == {"ref_sources": 1}
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_plans_queued_back_to_back_keep_their_host_buffers(cuda):
+    """Two different plans through device_planes with no synchronize,
+    queued behind a stream kept busy, so the first plan's one copy still
+    waits while the second plan's host buffer is taken and written: the
+    planes of each equal the CPU core's on its plan. torch's caching
+    host allocator hands no pinned block out again while its copy is in
+    flight."""
+    cpu = torch.device("cpu")
+    bps = [B.pack_batch(*synthetic_batch(n=3, size=128, bd=10, pcm=True,
+                                         seed=seed)) for seed in (31, 37)]
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the stream's time
+    got = [B.device_planes(bp, cuda) for bp in bps]
+    for bp, planes in zip(bps, got):
+        want = B.core(B.plan_to_device(bp, cpu), bp, cpu)
+        for a, b in zip(planes, want):
+            assert torch.equal(a.cpu(), b.to(a.dtype))
+    assert not all(torch.equal(a, b) for a, b in zip(*got))
 
 
 @pytest.mark.cuda

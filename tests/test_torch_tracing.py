@@ -10,7 +10,8 @@ tests/assets/torch/grid_0..3.hevc by the port's heif_mux):
   the worker thread and heif.entropy_wait, .pack, .h2d and .launch on
   the calling thread;
 - with the profiler off, record_function is never entered;
-- stats.counters["h2d_copies"] counts the arrays plan_to_device ships;
+- stats.counters["h2d_copies"] counts the copies plan_to_device makes,
+  one a plan, and ["h2d_bytes"] the bytes of that one buffer;
 - a traced decode and a traced burst in a process of their own session
   leave no process of that session behind;
 - ops._build.build, given a fake nvcc whose one compile fails while
@@ -172,10 +173,17 @@ def test_h2d_copies_count_the_arrays_shipped():
     assert n_pcm == 3
     used = {(size, comp) for comp, size in bp.tc_coeffs}
     assert len(shipped) == 6 * len(bp.tc_coeffs) + len(used) + 6 + n_pcm + 5
-    assert stats.counters == {"h2d_copies": len(shipped)}
+    nbytes = sum(t.numel() * t.element_size() for t in shipped)
+    # one copy a plan; its bytes hold every array, each padded to < 256
+    assert stats.counters["h2d_copies"] == 1
+    assert nbytes <= stats.counters["h2d_bytes"] < nbytes + 256 * len(shipped)
+    assert set(stats.counters) == {"h2d_copies", "h2d_bytes"}
     assert set(stats.stages) == {"h2d"}
+    counted = dict(stats.counters)
     B.plan_to_device(bp, torch.device("cpu"))  # no stats: nothing counted
-    assert stats.counters == {"h2d_copies": len(shipped)}
+    assert stats.counters == counted
+    B.plan_to_device(bp, torch.device("cpu"), stats)
+    assert stats.counters == {k: 2 * v for k, v in counted.items()}
 
 
 RUN = textwrap.dedent("""
