@@ -34,7 +34,7 @@ def readings(spec: dict, seed: int, level_bits: int = LEVEL_BITS,
     of `seed`. caches: two dicts that keep the exact and the control
     tiles across seeds (the tiles are the same; their order is not)."""
     traffic = spec["traffic"]
-    images = inputs.make_images(inputs.load_asset(spec["config"]), seed,
+    images = inputs.make_images(inputs.load_assets(spec["config"]), seed,
                                 traffic["distinct_images"])
     n = min(len(images), traffic["retain_calls"] * traffic["images_per_call"])
     picked = random.Random(seed).sample(range(len(images)), n)

@@ -1,5 +1,6 @@
 """What decides `correct`: the reference decodes every distinct tile of
-the run's images from the file bytes, in worker processes, once the
+the run's images (a single item's one coded picture counts as one tile)
+from the file bytes, in worker processes, once the
 window has closed; the program's answers are then compared with it
 sample for sample. The limit on mismatched samples is 0: the decode is
 bit-exact by the HEVC specification.
@@ -9,8 +10,10 @@ Nothing here imports the program: the answers arrive as numpy planes.
 
 from __future__ import annotations
 
+import gc
 import multiprocessing as mp
 import os
+from multiprocessing import resource_tracker
 
 import numpy as np
 
@@ -37,6 +40,22 @@ def workers() -> int:
     return max(1, len(os.sched_getaffinity(0)))
 
 
+def _pool_map(n: int, jobs: list) -> list:
+    """_tile_job over jobs in n spawned workers. Once the pool has ended
+    and its semaphores are released, the resource tracker that the pool
+    started is stopped and waited for, so no process of the pool's
+    outlives this call (the next pool starts a new tracker)."""
+    pool = mp.get_context("spawn").Pool(n)
+    try:
+        return pool.map(_tile_job, jobs, chunksize=1)
+    finally:
+        pool.terminate()
+        pool.join()
+        del pool
+        gc.collect()
+        resource_tracker._resource_tracker._stop()
+
+
 class Reference:
     """The reference's decode of every distinct tile of `images` (HEIF
     files), each tile decoded once. level_bits: see _tile_job. cache: a
@@ -56,8 +75,7 @@ class Reference:
         jobs = [(*k, level_bits) for k in unique]
         n = min(processes or workers(), len(jobs))
         if n > 1:
-            with mp.get_context("spawn").Pool(n) as pool:
-                done = pool.map(_tile_job, jobs, chunksize=1)
+            done = _pool_map(n, jobs)
         else:
             done = [_tile_job(j) for j in jobs]
         self._tiles.update(zip(unique, done))

@@ -6,7 +6,9 @@ permute_grid re-muxes a grid image so that its tiles sit in another
 order: every box of the source is kept byte for byte except the grid's
 `dimg` reference list, the `iloc` extents and the `mdat` payload order,
 so the same tile payloads, with the same hvcC, ispe, irot and colr
-properties, make a different picture.
+properties, make a different picture. renumber_item gives a file's
+primary item another id and changes nothing else that a decoder reads:
+the same coded picture in a file of other bytes.
 """
 
 from __future__ import annotations
@@ -403,4 +405,65 @@ def permute_grid(data: bytes, perm) -> bytes:
                     struct.pack(">I4sQ", 1, b"mdat", 16 + len(blob)) + blob)
         else:
             out += data[pos:pos + size]
+    return bytes(out)
+
+
+def renumber_item(data: bytes, new_id: int) -> bytes:
+    """`data` with its primary item's id changed to new_id, and an item
+    that had new_id given the primary's old id: the ids in pitm, iinf,
+    iref, ipma and iloc are rewritten at their own widths, so every box
+    keeps its size and the mdat, the properties and the payloads stay
+    byte for byte."""
+    top = _children(data, 0, len(data))
+    meta = [b for b in top if b[0] == b"meta"]
+    if len(meta) != 1:
+        raise ValueError("need one meta box")
+    _, mpos, mhdr, msize = meta[0]
+    kids = {k: (pos, hdr, size)
+            for k, pos, hdr, size in _children(data, mpos + mhdr + 4,
+                                               mpos + msize)}
+    out = bytearray(data)
+    pos, hdr, _ = kids[b"pitm"]
+    pitm_sz = 2 if data[pos + hdr] == 0 else 4
+    old = _uint(data, pos + hdr + 4, pitm_sz)
+    swap = {old: new_id, new_id: old}
+
+    def put(at: int, n: int) -> None:
+        item = _uint(out, at, n)
+        if item in swap:
+            if swap[item] >= 1 << (8 * n) or swap[item] < 1:
+                raise ValueError(f"item id {swap[item]} does not fit {n} bytes")
+            out[at:at + n] = swap[item].to_bytes(n, "big")
+
+    put(pos + hdr + 4, pitm_sz)
+    pos, hdr, size = kids[b"iinf"]
+    body = pos + hdr
+    count_sz = 2 if data[body] == 0 else 4
+    for kind, p, h, _ in _children(data, body + 4 + count_sz, pos + size):
+        if kind == b"infe":
+            put(p + h + 4, 4 if data[p + h] >= 3 else 2)
+    if b"iref" in kids:
+        pos, hdr, size = kids[b"iref"]
+        id_sz = 2 if data[pos + hdr] == 0 else 4
+        for _, p, h, _ in _children(data, pos + hdr + 4, pos + size):
+            put(p + h, id_sz)
+            for i in range(_uint(data, p + h + id_sz, 2)):
+                put(p + h + id_sz + 2 + i * id_sz, id_sz)
+    pos, hdr, size = kids[b"iprp"]
+    for kind, p, h, _ in _children(data, pos + hdr, pos + size):
+        if kind != b"ipma":
+            continue
+        version, flags = data[p + h], _uint(data, p + h + 1, 3)
+        id_sz, assoc_sz = (4 if version else 2), (2 if flags & 1 else 1)
+        at = p + h + 8
+        for _ in range(_uint(data, p + h + 4, 4)):
+            put(at, id_sz)
+            at += id_sz + 1 + data[at + id_sz] * assoc_sz
+    pos, hdr, size = kids[b"iloc"]
+    version, sizes, items = _parse_iloc(data[pos + hdr:pos + size])
+    items = [(swap.get(i, i), *rest) for i, *rest in items]
+    body = _write_iloc(data[pos + hdr:pos + hdr + 6], version, sizes, items)
+    if len(body) != size - hdr:
+        raise ValueError("iloc changed size")
+    out[pos + hdr:pos + size] = body
     return bytes(out)

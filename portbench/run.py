@@ -4,13 +4,14 @@ print its result as one JSON line, last on standard output:
     python3 -m portbench.run --workload flagship.decode --seed 7 \
         --seconds 40 --trace 0
 
-The cell names a configuration (portbench/configs/<name>.json: the source
-image and its sha256) and a traffic mix (portbench/traffic/<name>.json,
-read by portbench.loop). Set-up makes the cell's images from --seed,
-loads the program and warms it up; the window then drives the traffic
-for --seconds; then the reference (portbench.reference, in worker
-processes) decodes every distinct tile of the images, and the answers of
-the calls drawn from the seed are compared with it, sample for sample.
+The cell names a configuration (portbench/configs/<name>.json: its
+source images and their sha256, read by portbench.inputs) and a traffic
+mix (portbench/traffic/<name>.json, read by portbench.loop). Set-up
+makes the cell's images from --seed, loads the program and warms it up;
+the window then drives the traffic for --seconds; then the reference
+(portbench.reference, in worker processes) decodes every distinct tile
+of the images, and the answers of the calls drawn from the seed are
+compared with it, sample for sample.
 --trace 0 reports the cell's end-to-end metrics; --trace 1 runs the
 window under torch.profiler, with the program's DecodeStats on, and
 reports its per-layer metrics (portbench/metrics/<name>.py).
@@ -125,7 +126,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
 
     cuda = torch.device(device).type == "cuda"
     marks = {"imports": time.perf_counter() - t_start}
-    source = inputs.load_asset(spec["config"])
+    source = inputs.load_assets(spec["config"])
     images = inputs.make_images(source, seed,
                                 spec["traffic"]["distinct_images"])
     mps = [p.out_w * p.out_h / 1e6 for p in map(ref_image.parse, images)]

@@ -44,8 +44,8 @@ def small_grid(path: Path, tiles=LARGE_LEVEL_TILES, out=(1000, 500),
     data = mux.mux_heic([tile_annexb(src, i) for i in tiles],
                         grid=(1, len(tiles), *out), irot=irot)
     path.write_bytes(data)
-    return {"name": "small", "asset": str(path),
-            "sha256": hashlib.sha256(data).hexdigest()}
+    return {"name": "small", "assets": [
+        {"file": str(path), "sha256": hashlib.sha256(data).hexdigest()}]}
 
 
 @pytest.fixture(scope="session")
@@ -61,13 +61,49 @@ def grid_irot() -> bytes:
     return mux.mux_heic(streams, grid=(2, 2, 2 * 96 - 8, 2 * 64 - 6), irot=1)
 
 
+def single_items(k: int = 4) -> list:
+    """k single-item images (one coded picture each, no grid) of the
+    port's committed x265 streams, all with one SPS and PPS: grid_0..3
+    (64x96), or the 8-bit 128x192 stream for k = 1."""
+    if k == 1:
+        return [mux.mux_heic([(TORCH_ASSETS / "8bit.hevc").read_bytes()])]
+    return [mux.mux_heic([(TORCH_ASSETS / f"grid_{i}.hevc").read_bytes()])
+            for i in range(k)]
+
+
+def single_config_of(out: Path, files: list) -> dict:
+    """A configuration of single-item files, as single1080's, written
+    to `out`."""
+    assets = []
+    for i, data in enumerate(files):
+        path = out / f"item{i}.heic"
+        path.write_bytes(data)
+        assets.append({"file": str(path),
+                       "sha256": hashlib.sha256(data).hexdigest()})
+    return {"name": "single_small", "assets": assets}
+
+
+@pytest.fixture(scope="session")
+def single_config(tmp_path_factory) -> dict:
+    return single_config_of(tmp_path_factory.mktemp("single"),
+                            single_items())
+
+
+@pytest.fixture(scope="session")
+def single_large_config(tmp_path_factory) -> dict:
+    """The two flagship tiles whose levels pass 127, each a single item."""
+    src = FLAGSHIP.read_bytes()
+    files = [mux.mux_heic([tile_annexb(src, i)]) for i in LARGE_LEVEL_TILES]
+    return single_config_of(tmp_path_factory.mktemp("single_large"), files)
+
+
 @pytest.fixture(scope="session")
 def irot_config(tmp_path_factory) -> dict:
     path = tmp_path_factory.mktemp("irot") / "grid_irot.heic"
     data = grid_irot()
     path.write_bytes(data)
-    return {"name": "grid_irot", "asset": str(path),
-            "sha256": hashlib.sha256(data).hexdigest()}
+    return {"name": "grid_irot", "assets": [
+        {"file": str(path), "sha256": hashlib.sha256(data).hexdigest()}]}
 
 
 def bench() -> dict:

@@ -50,7 +50,7 @@ def test_configs_resolve():
         assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
         assert cfg["reduced"] == c["reduced"] and len(c["reduced"]) <= 16
         assert all(NAME.match(k) for k in c["reduced"])
-        assert (ROOT / cfg["asset"]).is_file()
+        assert all((ROOT / e["file"]).is_file() for e in cfg["assets"])
 
 
 def test_workloads_resolve():

@@ -1,6 +1,6 @@
 """The control (portbench.control) fails the comparison that the program
-passes: on two flagship tiles whose levels pass 127, in both kinds of
-answer."""
+passes: on two flagship tiles whose levels pass 127, as a grid in both
+kinds of answer and as two single-item images in a burst."""
 
 from __future__ import annotations
 
@@ -11,10 +11,12 @@ from portbench.run import load_cell
 from portbench.tests.conftest import bench
 
 
-@pytest.mark.parametrize("workload", ["flagship.decode", "flagship.burst"])
-def test_control_is_not_correct(workload, small_config):
+@pytest.mark.parametrize("workload,config", [
+    ("flagship.decode", "small_config"), ("flagship.burst", "small_config"),
+    ("single1080.burst64", "single_large_config")])
+def test_control_is_not_correct(workload, config, request):
     spec = load_cell(workload, bench())
-    spec["config"] = small_config
+    spec["config"] = request.getfixturevalue(config)
     spec["traffic"] = dict(spec["traffic"], distinct_images=2,
                            images_per_call=1, retain_calls=2)
     caches = ({}, {})

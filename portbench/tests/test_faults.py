@@ -1,5 +1,6 @@
 """A run of the harness (portbench.run.run_cell, the look for a card
-skipped: the plain PyTorch path on the CPU, on the 2x2 grid_irot) with the timed path broken
+skipped: the plain PyTorch path on the CPU, on the 2x2 grid_irot and on
+four single-item images) with the timed path broken
 underneath comes out not correct, once for each fault a cell can have:
 a call that returns its last answer again; half of a call's work left
 out; a sample altered where the decode produces it. (Every cell runs on
@@ -18,13 +19,18 @@ from portbench.tests.conftest import bench
 SEED = 2**31 + 31
 
 
-def cpu_spec(workload, config):
+def cpu_spec(workload, config, cell_ratio=False):
+    """The cell at 2 images a call (or its own 1), 4 distinct images, or
+    with cell_ratio as many times 2 as the cell has calls' worth."""
     spec = load_cell(workload, bench())
     spec["config"] = config
-    spec["traffic"] = dict(spec["traffic"], distinct_images=4,
+    traffic = spec["traffic"]
+    per = min(2, traffic["images_per_call"])
+    distinct = (per * traffic["distinct_images"] // traffic["images_per_call"]
+                if cell_ratio else 4)
+    spec["traffic"] = dict(traffic, distinct_images=distinct,
                            warmup_calls=1, retain_calls=8,
-                           images_per_call=min(
-                               2, spec["traffic"]["images_per_call"]))
+                           images_per_call=per)
     return spec
 
 
@@ -87,10 +93,15 @@ def altered(monkeypatch, workload):
     monkeypatch.setattr(B, "core", core)
 
 
-@pytest.mark.parametrize("workload", ["flagship.decode", "flagship.burst"])
+@pytest.mark.parametrize("workload,config,cell_ratio", [
+    ("flagship.decode", "irot_config", False),
+    ("flagship.burst", "irot_config", False),
+    ("single1080.burst64", "single_config", False),
+    ("single1080.burst64", "single_config", True)])
 @pytest.mark.parametrize("fault", [None, stale, half, altered])
-def test_fault_is_caught(workload, fault, irot_config, monkeypatch):
-    spec = cpu_spec(workload, irot_config)
+def test_fault_is_caught(workload, config, cell_ratio, fault, request,
+                         monkeypatch):
+    spec = cpu_spec(workload, request.getfixturevalue(config), cell_ratio)
     if fault is not None:
         fault(monkeypatch, workload)
     torch.manual_seed(0)
