@@ -163,6 +163,8 @@ class HeicDecoder:
           launch, residual, intra, deblock, sao, d2h, stitch; with a
           mesh: hdr, entropy, sharded, stitch; with backend "ref": hdr,
           entropy, recon, stitch), the h2d_copies and h2d_bytes counters,
+          the native entropy pool's entropy_tasks, entropy_busy_s and
+          entropy_bins counters,
           scheduler["effective_backend"] and, on CUDA, device times
           (stats.device) from CUDA events. Stats add no synchronize: the
           call queues its device work as it does without them.
@@ -293,7 +295,7 @@ class HeicDecoder:
                 if native.available():
                     return native.decode_tiles_parallel(
                         sps, pps, parsed,
-                        max_workers=hints.get("entropy_workers"))
+                        max_workers=hints.get("entropy_workers"), stats=stats)
                 return [TileSyntaxDecoder(sps, pps, ps).decode()
                         for ps in parsed]
 

@@ -5,7 +5,10 @@ The C++ decoder (entropy.cpp here) is a bit-exact twin of
 heif_tpu_torch.cabac.syntax. `decode_tile_native` mirrors
 TileSyntaxDecoder.decode()'s output (SyntaxTensors).
 `decode_tiles_parallel` fans tiles across threads — the C call releases
-the GIL, so a pool of OS threads gives real parallelism.
+the GIL, so a pool of OS threads gives real parallelism. The C decoder
+counts the CABAC bins it decodes (SyntaxTensors.n_bins); given a
+DecodeStats, the pool adds its tasks, their busy seconds and their bins
+to its counters.
 
 The library is built from entropy.cpp at first use, with the flags of
 heif_tpu/native/Makefile:
@@ -32,6 +35,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
@@ -45,7 +49,7 @@ from heif_tpu_torch.hevc.slice import ParsedSlice
 SOURCE = Path(__file__).resolve().parent / "entropy.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "heif_tpu_torch"
 CXX_FLAGS = ["-O3", "-mtune=generic", "-fPIC", "-std=c++17", "-shared"]
-ABI_VERSION = 4
+ABI_VERSION = 5
 _lib = None
 _lock = threading.Lock()
 
@@ -81,6 +85,7 @@ class _TileOutput(ctypes.Structure):
         ("pcm_y", ctypes.c_void_p),
         ("pcm_cb", ctypes.c_void_p),
         ("pcm_cr", ctypes.c_void_p),
+        ("n_bins", ctypes.c_void_p),
     ]
 
 
@@ -284,6 +289,7 @@ def decode_tile_native(
     ]
     tu_table = np.zeros((max_tu, T.TU_FIELDS), dtype=np.int32)
     tu_count = np.zeros(1, dtype=np.int32)
+    n_bins = np.zeros(1, dtype=np.int64)
     st.intra_mode_y = np.ones((g4h, g4w), dtype=np.int8)
     st.intra_mode_c = np.ones((g4h, g4w), dtype=np.int8)
     st.qp_y = np.zeros((g4h, g4w), dtype=np.int8)
@@ -329,6 +335,7 @@ def decode_tile_native(
         pcm_y=vp(st.pcm_planes[0]),
         pcm_cb=vp(st.pcm_planes[1]),
         pcm_cr=vp(st.pcm_planes[2]),
+        n_bins=vp(n_bins),
     )
     params = _make_params(sps, pps, parsed.header)
     rbsp = (
@@ -367,6 +374,7 @@ def decode_tile_native(
     if rc != 0:
         raise ValueError("native entropy decode failed (stream desync)")
     st.tu_table = tu_table[: int(tu_count[0])].copy()
+    st.n_bins = int(n_bins[0])
     st.bypass_map = bypass.astype(bool)
     st.pcm_map = pcm.astype(bool)
     st.vert_edges = vert.astype(bool)
@@ -382,6 +390,8 @@ def decode_tile_native(
 # rather than fanning across a wider cached pool.
 _POOLS: dict = {}
 _POOL_LOCK = threading.Lock()
+# guards DecodeStats.counters against the pool's workers
+_STATS_LOCK = threading.Lock()
 
 
 def _pool(workers: int) -> ThreadPoolExecutor:
@@ -393,22 +403,41 @@ def _pool(workers: int) -> ThreadPoolExecutor:
         return p
 
 
+def _count(stats, **amounts) -> None:
+    with _STATS_LOCK:
+        c = stats.counters
+        for k, v in amounts.items():
+            c[k] = c.get(k, 0) + v
+
+
 def decode_tiles_parallel(
     sps, pps, parsed_list, max_workers: Optional[int] = None,
-    pack_pad: Optional[int] = None,
+    pack_pad: Optional[int] = None, stats=None,
 ) -> list:
-    """Entropy-decode many tiles concurrently (GIL released per C call).
+    """Entropy-decode many tiles concurrently (GIL released per C call),
+    one pool task a tile.
 
     pack_pad: when set, also run the native per-tile pack (device-ready
     class blocks / scan fields, attached as st.packed) inside the same
     worker threads; the value is the residual-plane PAD of ops.batch.
+    stats: a DecodeStats whose counters receive entropy_tasks (the pool
+    tasks run), entropy_busy_s (the wall seconds the workers spent inside
+    them, each timed in its worker, the pre-pack included) and
+    entropy_bins (the CABAC bins they decoded).
     """
 
     def one(p):
+        t0 = time.perf_counter()
         st = decode_tile_native(sps, pps, p)
         if pack_pad is not None:
             pack_tile_native(st, pack_pad)
+        if stats is not None:
+            _count(stats, entropy_busy_s=time.perf_counter() - t0,
+                   entropy_bins=st.n_bins)
         return st
 
     workers = max_workers or min(len(parsed_list), os.cpu_count() or 4)
-    return list(_pool(workers).map(one, parsed_list))
+    out = list(_pool(workers).map(one, parsed_list))
+    if stats is not None:
+        _count(stats, entropy_tasks=len(parsed_list))
+    return out

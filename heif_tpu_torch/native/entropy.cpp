@@ -259,6 +259,7 @@ struct TileOutput {
   uint16_t* pcm_y;       // [H*W] (may be null if !pcm_enabled)
   uint16_t* pcm_cb;
   uint16_t* pcm_cr;
+  int64_t* n_bins;       // [1] CABAC bins decoded: decision, bypass, terminate
 };
 
 // TU table columns (match cabac/types.py)
@@ -290,6 +291,9 @@ struct Engine {
   int ncache = 0;      // valid bit count in cache
   uint32_t range;
   uint32_t offset;
+  // bins decoded (decision, bypass and terminate), counted in this
+  // thread's engine and handed out once a tile
+  int64_t bins = 0;
   // context state packed as (pStateIdx << 1) | valMps
   uint8_t state[N_CTX];
 
@@ -372,6 +376,7 @@ struct Engine {
     uint32_t rmps = range - lps;
     uint32_t is_lps = offset >= rmps;
     int bin = (int)((s & 1) ^ is_lps);
+    bins++;
     offset -= is_lps ? rmps : 0;
     range = is_lps ? lps : rmps;
     state[ctx] = is_lps ? kFused.next_lps[s] : kFused.next_mps[s];
@@ -383,6 +388,7 @@ struct Engine {
   }
 
   inline int decode_bypass() {
+    bins++;
     offset = (offset << 1) | read_bits(1);
     uint32_t b = offset >= range;
     offset -= b ? range : 0;
@@ -392,6 +398,7 @@ struct Engine {
   // n consecutive bypass bins as one division (n <= 47)
   inline uint32_t decode_bypass_bits(int n) {
     if (n == 0) return 0;
+    bins += n;
     uint64_t v = ((uint64_t)offset << n) | read_bits(n);
     offset = (uint32_t)(v % range);
     return (uint32_t)(v / range);
@@ -414,6 +421,7 @@ struct Engine {
         uint64_t vt = v >> (k - take);
         offset = (uint32_t)(vt % range);
         consume(take);
+        bins += take;
         total += take;
         continue;
       }
@@ -424,18 +432,21 @@ struct Engine {
         uint64_t vt = v >> (k - take);
         offset = (uint32_t)(vt % range);
         consume(take);
+        bins += take;
         return max_ones;
       }
       int used = ones + 1;  // run + terminating 0
       uint64_t vt = v >> (k - used);
       offset = (uint32_t)(vt % range);
       consume(used);
+      bins += used;
       return total + ones;
     }
     return max_ones;
   }
 
   inline int decode_terminate() {
+    bins++;
     range -= 2;
     if (offset >= range) return 1;
     if (range < 256) {
@@ -1305,7 +1316,9 @@ int heif_entropy_decode_tile(const uint8_t* rbsp, int32_t rbsp_len,
   d.sub_off = substream_offsets;
   d.n_sub = n_substreams;
   *out->tu_count = 0;
-  return d.decode();
+  int rc = d.decode();
+  *out->n_bins = d.eng.bins;
+  return rc;
 }
 
 // tiles_enabled_flag=1 variant: tile_col_bd/[n_tile_cols+1] and
@@ -1329,7 +1342,9 @@ int heif_entropy_decode_tile_tiled(
   d.n_tcols = n_tile_cols;
   d.n_trows = n_tile_rows;
   *out->tu_count = 0;
-  return d.decode();
+  int rc = d.decode();
+  *out->n_bins = d.eng.bins;
+  return rc;
 }
 
 // ---------------------------------------------------------------------------
@@ -1426,6 +1441,6 @@ int heif_pack_tile(const int32_t* tu, int32_t n_tu,
   return 0;
 }
 
-int heif_entropy_abi_version() { return 4; }
+int heif_entropy_abi_version() { return 5; }
 
 }  // extern "C"

@@ -773,16 +773,18 @@ def reconstruct_pipelined(syntaxes, sps, pps, slices, chunk: int = 12,
         return stack_chunks(rb.drain())
 
 
-def default_entropy(sps, pps, hints: dict):
+def default_entropy(sps, pps, hints: dict, stats=None):
     """The overlapped paths' entropy: native C++ with pack_pad=PAD, so
     each worker also pre-packs its tile and pack_batch only copies
-    segments (GIL released inside); the Python twin without native."""
+    segments (GIL released inside); the Python twin without native.
+    stats: receives the native pool's counters (entropy_tasks,
+    entropy_busy_s, entropy_bins; native.decode_tiles_parallel)."""
     from heif_tpu_torch import native
 
     if native.available():
         workers = hints.get("entropy_workers")
         return lambda ps: native.decode_tiles_parallel(
-            sps, pps, ps, pack_pad=PAD, max_workers=workers
+            sps, pps, ps, pack_pad=PAD, max_workers=workers, stats=stats
         )
     from heif_tpu_torch.cabac.syntax import TileSyntaxDecoder
 
@@ -847,7 +849,8 @@ def decode_reconstruct_overlapped(
     real tiles: the last one may be shorter.
 
     stats: optional DecodeStats; records the scheduler hints, the
-    h2d_copies and h2d_bytes counters and host stage times entropy,
+    h2d_copies and h2d_bytes counters, the native entropy pool's
+    counters (default_entropy) and host stage times entropy,
     entropy_wait, pack, dispatch, h2d, launch and, with readback,
     readback (the drain).
     Overlapped stages sum to more than the wall by design.
@@ -858,7 +861,7 @@ def decode_reconstruct_overlapped(
     if stats is not None:
         stats.scheduler = hints
     if entropy_fn is None:
-        entropy_fn = default_entropy(sps, pps, hints)
+        entropy_fn = default_entropy(sps, pps, hints, stats)
     if chunk is None:
         chunk = hints.get("chunk", 16)
     if chunk < 1:
@@ -905,7 +908,7 @@ def decode_burst(sps, pps, image_slice_lists, chunk: int | None = None,
             owner.append(ii)
             chunks.append(list(slices[lo : lo + chunk]))
     outs = [[] for _ in image_slice_lists]
-    _run_one_device(sps, pps, chunks, default_entropy(sps, pps, hints),
-                    device, stats,
+    _run_one_device(sps, pps, chunks,
+                    default_entropy(sps, pps, hints, stats), device, stats,
                     lambda i, planes: outs[owner[i]].append(planes))
     return outs

@@ -72,7 +72,10 @@ class DecodeStats:
       the one-batch path (ops.batch.reconstruct_batch) on CUDA.
     counters: h2d_copies, the host-to-device copies of the plans shipped
       (ops.batch.plan_to_device: one a plan), and h2d_bytes, the bytes
-      those copies ship, padding included.
+      those copies ship, padding included; entropy_tasks, the native
+      entropy pool's tasks (native.decode_tiles_parallel: one a tile),
+      entropy_busy_s, the wall seconds its workers spent inside them,
+      and entropy_bins, the CABAC bins they decoded.
     """
 
     stages: dict = field(default_factory=dict)

@@ -389,7 +389,7 @@ def test_entropy_library_is_built_into_build_dir(tmp_path):
 @pytest.mark.parametrize("source,error", [
     ("this is not C++\n", "entropy library build failed"),
     ('extern "C" int heif_entropy_abi_version() { return 3; }\n',
-     "entropy library ABI 3, expected 4"),
+     "entropy library ABI 3, expected 5"),
 ])
 def test_bad_entropy_library_makes_decode_raise(monkeypatch, tmp_path,
                                                 halfmoonbay_bytes, source,
